@@ -8,10 +8,13 @@ Phases, one JSON line each:
   env       torch and CUDA versions, the card's name and power limit
   build     every kernel built from the sources under src/repro_torch (one
             nvcc per source, all started together)
-  kernels   each kernel against its plain version (bit-exact) at every
-            shape the main-path phases give it and at a sweep of sizes, and
-            its time beside its bound, the plain version's and one PyTorch
-            call computing the same function
+  kernels   each kernel against its plain version at every shape the
+            main-path phases give it and at a sweep of sizes (radix_partition
+            bit-exact; flash_attention within 2e-5 in f32 and 2e-2 in bf16,
+            and a bf16 result also within 4e-3 + 2e-2 * |plain| of the
+            plain version run in f32),
+            and its time beside its bound, the plain version's and one
+            PyTorch call computing the same function
   dist      dist sort, join and groupby-sum at 35 million rows on 4 logical
             ranks of cuda:0, checked against numpy
   pipeline  the ETL pipelines (python -m repro_torch.etl) under the
@@ -19,11 +22,20 @@ Phases, one JSON line each:
             an untimed warm-up that the launch count leaves out
   shuffle   the out-of-core shuffle's radix_bucket at 35 million rows with
             verify=True, plus one sort task and one join task
+  serve     qwen3-8b at its published widths in bf16 (random weights from a
+            seeded generator), 4 logical ranks of cuda:0, through both acts
+            of python -m repro_torch.serve_lm: the static engine as a task
+            beside an ETL dist sort, then the continuous engine through
+            ServeDriver beside ETL sorts; then prefill and decode times and
+            a profile of one 2048-token prefill
+  serve_f32 the same widths with 2 layers in float32 (TF32 off): the
+            continuous engine's tokens equal the full-forward oracle's
 
-The main-path phases (dist, pipeline, shuffle) each start with every kernel's
-launch count at 0 and fail unless each kernel of the path launched.  Then
-come the kernel summary line, the card's name and power limit as nvidia-smi
-gives them, and last ``{"ok": true, "device": {...}}``.  Any failure raises
+The main-path phases (dist, pipeline, shuffle, serve, serve_f32) each start
+with every kernel's launch count at 0 and fail unless each kernel that the
+phase's path runs launched.  Then come the kernel summary line, the card's
+name and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero; without a CUDA device the script exits non-zero at once.
 """
 import json
@@ -44,6 +56,11 @@ DIST_ROWS = 35_000_000          # the paper's dataframe size
 N_RANKS = 4
 PIPE_ROWS = 2_000_000           # rows per ETL task in the pipeline phase
 SHUFFLE_BUCKETS = 8             # radix_bucket's buckets in the shuffle phase
+SERVE_ARCH = "qwen3-8b"
+SERVE_PROMPTS = [2048, 2048, 1024, 1024, 512, 512, 1536, 768]
+SERVE_BUDGETS = [16, 32] * 4    # max_new_tokens of each serve request
+SERVE_MAX_BATCH, SERVE_MAX_SEQ = 4, 4096
+F32_PROMPTS, F32_NEW = [300, 77, 129], 8      # the f32 token check
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 U64 = np.uint64
 
@@ -90,12 +107,15 @@ def wall(fn):
 
 RADIX_KERNELS = ("count_kernel", "scan_tiles_kernel", "scan_hist_kernel",
                  "rank_kernel")
+# device-kernel names of each port kernel, as the profiler reports them
+KERNEL_NAMES = {"radix_partition": RADIX_KERNELS,
+                "flash_attention": ("flash_attention_",)}
 
 
 def profile(fn) -> dict:
     """One run of ``fn`` under torch.profiler: the device time by kernel
-    (summed; the port runs on one stream), the radix_partition kernels'
-    share, and the device's idle share of the profiled wall time."""
+    (summed; the port runs on one stream), each port kernel's share, and
+    the device's idle share of the profiled wall time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     sync()
@@ -113,17 +133,26 @@ def profile(fn) -> dict:
     busy = sum(by_name.values())
     if not busy:
         return {"profiled_wall_ms": wall_ms, "device_ms": "not measured"}
-    radix = sum(v for k, v in by_name.items()
-                if any(r in k for r in RADIX_KERNELS))
+    out = {"profiled_wall_ms": wall_ms, "device_ms": busy,
+           "idle_share": 1 - busy / wall_ms}
+    for kernel, names in KERNEL_NAMES.items():
+        out[f"{kernel}_ms"] = sum(v for k, v in by_name.items()
+                                  if any(r in k for r in names))
+        out[f"{kernel}_share"] = out[f"{kernel}_ms"] / busy
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"profiled_wall_ms": wall_ms, "device_ms": busy,
-            "idle_share": 1 - busy / wall_ms, "radix_partition_ms": radix,
-            "top": [[k[:80], v] for k, v in top]}
+    out["top"] = [[k[:80], v] for k, v in top]
+    return out
 
 
 # ---------------------------------------------------------------------------
 # the kernels of the port, each with its plain version and its yardstick
 # ---------------------------------------------------------------------------
+def capacity(rows: int, ranks: int) -> int:
+    """Rows per rank of a sharded table, as the dist phase and the ETL
+    payloads size it."""
+    return rows // ranks * 2 + 64
+
+
 def _radix_library(b: torch.Tensor, n_buckets: int):
     """One stable argsort, its inverse scatter and a bincount: the same
     function from PyTorch's own operators (a yardstick only)."""
@@ -133,15 +162,26 @@ def _radix_library(b: torch.Tensor, n_buckets: int):
     return dest, torch.bincount(b, minlength=n_buckets).to(torch.int32)
 
 
-def capacity(rows: int, ranks: int) -> int:
-    """Rows per rank of a sharded table, as the dist phase and the ETL
-    payloads size it."""
-    return rows // ranks * 2 + 64
-
-
-def kernel_specs():
+def _radix_spec():
     from repro_torch.kernels.radix_partition import ops as radix
-    return [{
+
+    def inputs(shape, gen):
+        n, nb = shape
+        return (torch.randint(0, nb, (n,), dtype=torch.int32, device="cuda",
+                              generator=gen), nb)
+
+    def compare(out, ref, args, yardstick=False):
+        """Largest difference of dest and hist (integers: exact)."""
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(out, ref, strict=True))
+        return err, err == 0, {}
+
+    def bound(shape):
+        n, nb = shape
+        nbytes = 4 * n + 4 * n + 4 * nb     # read buckets, write dest + hist
+        return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+    return {
         "name": "radix_partition",
         "route": "cuda",
         "source": "src/repro_torch/kernels/radix_partition/csrc/"
@@ -151,19 +191,124 @@ def kernel_specs():
         "wrapper": radix.radix_partition,
         "plain": radix.radix_partition_plain,
         "library": _radix_library,
+        "inputs": inputs, "compare": compare, "bound": bound,
+        "tolerance": "bit-exact",
+        "describe": lambda shape: {"n": shape[0], "buckets": shape[1]},
         # every (n, B) the main-path phases launch the kernel at; the first
         # is the timed one
         "main_shapes": (
             # dist: one rank's shuffle pack, P + 1 buckets
             (capacity(DIST_ROWS, N_RANKS), N_RANKS + 1),
-            # pipeline: each ETL task's pack on half the pool
+            # pipeline and serve: each ETL task's pack on half the pool
             (capacity(PIPE_ROWS, N_RANKS // 2), N_RANKS // 2 + 1),
             # shuffle: radix_bucket over the whole input
             (DIST_ROWS, SHUFFLE_BUCKETS),
         ),
-        "sweep_n": (1, 1000, 4097, DIST_ROWS),
-        "sweep_b": (1, 2, 5, 65, radix.MAX_BUCKETS),
-    }]
+        "sweep": tuple((n, nb) for n in (1, 1000, 4097, DIST_ROWS)
+                       for nb in (1, 2, 5, 65, radix.MAX_BUCKETS)),
+    }
+
+
+BF16_TOL, F32_TOL = 2e-2, 2e-5
+BF16_F32_ATOL = 4e-3            # bf16 kernel against the plain version in f32
+H100_BF16_FLOPS = 989e12        # dense tensor-core peak (NVIDIA data sheet)
+
+
+def _attention_library(q, k, v):
+    """scaled_dot_product_attention on the same inputs (a yardstick only;
+    the port never calls it)."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def _attention_spec():
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    def inputs(shape, gen):
+        b, h, kh, s, hd, dtype = shape
+        return tuple(
+            torch.randn(dims, generator=gen, device="cuda").to(dtype)
+            for dims in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+
+    def compare(out, ref, args, yardstick=False):
+        """Largest absolute difference from the plain version, and whether
+        every element is within tol + tol * |plain| (tol 2e-2 in bf16: the
+        plain version rounds the scores to bf16 as the JAX einsum does, the
+        kernel keeps them in f32).  A bf16 kernel result is also held to the
+        plain version run in f32 on the same inputs, within BF16_F32_ATOL +
+        tol * |plain|: that leaves only the kernel's own roundings (P and
+        the output to bf16), so it holds the small outputs of a long
+        prompt's late rows, which average hundreds of values, to their own
+        size.  The library yardstick takes only the first check."""
+        tol = BF16_TOL if out.dtype == torch.bfloat16 else F32_TOL
+        diff = (out.float() - ref.float()).abs()
+        ok = bool((diff <= tol + tol * ref.float().abs()).all())
+        info = {}
+        if out.dtype == torch.bfloat16 and not yardstick:
+            ref32 = fa.flash_attention_plain(*(a.float() for a in args))
+            diff32 = (out.float() - ref32).abs()
+            info["max_abs_err_vs_f32_plain"] = float(diff32.max())
+            ok = ok and bool(
+                (diff32 <= BF16_F32_ATOL + tol * ref32.abs()).all())
+        return float(diff.max()), ok, info
+
+    def bound(shape):
+        b, h, kh, s, hd, dtype = shape
+        flops = 4 * hd * h * b * s * (s + 1) / 2        # causal pairs
+        size = 2 if dtype == torch.bfloat16 else 4
+        nbytes = size * hd * b * s * (2 * h + 2 * kh)   # q, o, k, v once
+        by_ops = flops / H100_BF16_FLOPS * 1e3
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return max(by_ops, by_bytes), \
+            "operations" if by_ops >= by_bytes else "bytes"
+
+    def describe(shape):
+        b, h, kh, s, hd, dtype = shape
+        return {"B": b, "H": h, "K": kh, "S": s, "hd": hd,
+                "dtype": str(dtype).removeprefix("torch.")}
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:59",
+        "build": fa.load,
+        "wrapper": fa.flash_attention,          # causal by default
+        "plain": fa.flash_attention_plain,
+        "library": _attention_library,
+        "inputs": inputs, "compare": compare, "bound": bound,
+        "tolerance": f"|kernel - plain| <= tol + tol * |plain|, tol "
+                     f"{F32_TOL} (f32), {BF16_TOL} (bf16); a bf16 kernel "
+                     f"also |kernel - plain in f32| <= {BF16_F32_ATOL} + "
+                     f"{BF16_TOL} * |plain in f32|",
+        "describe": describe,
+        # (B, H, K, S, hd, dtype) of every prefill and forward of the serve
+        # phases; the first is the timed one.  serve_f32's oracle runs a
+        # forward at every length from the prompt's to the prompt's plus
+        # F32_NEW - 1, and the engine's prefill at the prompt's.
+        "main_shapes": (
+            *((1, 32, 8, s, 128, bf16) for s in sorted(set(SERVE_PROMPTS),
+                                                       reverse=True)),
+            *((2, 32, 8, s, 128, bf16) for s in sorted(
+                {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
+            *((1, 32, 8, s + d, 128, f32) for s in F32_PROMPTS
+              for d in range(F32_NEW)),
+        ),
+        "sweep": tuple(
+            (b, h, kh, s, hd, dtype)
+            for b, s, h, kh, hd in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64),
+                                    (1, 130, 8, 8, 32), (2, 384, 6, 3, 128),
+                                    (1, 1, 4, 2, 16), (1, 17, 8, 2, 128))
+            for dtype in (f32, bf16)),
+    }
+
+
+def kernel_specs():
+    return [_radix_spec(), _attention_spec()]
 
 
 def phase_build(specs):
@@ -190,58 +335,61 @@ def phase_build(specs):
 
 
 def phase_kernels(specs, gen):
-    """Each kernel bit-exact against its plain version at every main-path
-    shape and across the sweep, then timed at the first main-path shape."""
+    """Each kernel against its plain version at every main-path shape and
+    across the sweep, then timed at the first main-path shape beside its
+    plain version and its library yardstick."""
     records = {}
     for spec in specs:
         checks, max_err = [], 0
-        shapes = [(n, nb, True) for n, nb in spec["main_shapes"]] + [
-            (n, nb, False) for n in spec["sweep_n"] for nb in spec["sweep_b"]]
-        for n, nb, main_path in shapes:
-            b = torch.randint(0, nb, (n,), dtype=torch.int32, device="cuda",
-                              generator=gen)
-            d, h = spec["wrapper"](b, nb)
-            dp, hp = spec["plain"](b, nb)
+        shapes = [(s, True) for s in spec["main_shapes"]] + [
+            (s, False) for s in spec["sweep"]]
+        for shape, main_path in shapes:
+            args = spec["inputs"](shape, gen)
+            out = spec["wrapper"](*args)
+            ref = spec["plain"](*args)
             sync()
-            err = max(int((d.long() - dp.long()).abs().max()),
-                      int((h.long() - hp.long()).abs().max()))
+            err, ok, info = spec["compare"](out, ref, args)
             max_err = max(max_err, err)
-            checks.append({"n": n, "buckets": nb, "main_path": main_path,
-                           "max_abs_err": err})
-            if err:
+            checks.append({**spec["describe"](shape), "main_path": main_path,
+                           "max_abs_err": err, **info})
+            if not ok:
                 raise AssertionError(f"{spec['name']} disagrees with its "
-                                     f"plain version at n={n}, B={nb}")
-            del d, h, dp, hp
-        n, nb = spec["main_shapes"][0]
-        b = torch.randint(0, nb, (n,), dtype=torch.int32, device="cuda",
-                          generator=gen)
-        lib_d, lib_h = spec["library"](b, nb)
-        d, h = spec["wrapper"](b, nb)
-        if not (torch.equal(lib_d, d) and torch.equal(lib_h, h)):
-            raise AssertionError(f"{spec['name']}: library yardstick differs")
-        ms = time_ms(lambda: spec["wrapper"](b, nb))
-        plain_ms = time_ms(lambda: spec["plain"](b, nb), reps=5, warmup=1)
-        library_ms = time_ms(lambda: spec["library"](b, nb))
-        nbytes = 4 * n + 4 * n + 4 * nb     # read buckets, write dest + hist
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                                     f"plain version at {shape}: max abs "
+                                     f"err {err}")
+            del args, out, ref
+        shape = spec["main_shapes"][0]
+        args = spec["inputs"](shape, gen)
+        lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),
+                                             spec["plain"](*args), args,
+                                             yardstick=True)
+        if not lib_ok:
+            raise AssertionError(f"{spec['name']}: library yardstick differs "
+                                 f"by {lib_err}")
+        ms = time_ms(lambda: spec["wrapper"](*args))
+        plain_ms = time_ms(lambda: spec["plain"](*args), reps=5, warmup=1)
+        library_ms = time_ms(lambda: spec["library"](*args))
+        bound_ms, bound_by = spec["bound"](shape)
         records[spec["name"]] = {
             "name": spec["name"], "route": spec["route"],
             "source": spec["source"], "replaces": spec["replaces"],
             "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms, "shape": {"n": n, "buckets": nb}}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": spec["describe"](shape)}
         emit("kernels", name=spec["name"], checks=checks, kernel_ms=ms,
-             bound_ms=bound_ms, plain_ms=plain_ms, library_ms=library_ms,
-             shape={"n": n, "buckets": nb}, tolerance="bit-exact")
+             bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+             library_ms=library_ms, library_max_abs_err=lib_err,
+             shape=spec["describe"](shape), tolerance=spec["tolerance"])
+        del args
     return records
 
 
 class MainPath:
     """Zero every kernel's launch count before a main-path phase; after it,
-    fail unless each launched, and add the counts to the kernel records."""
+    fail unless each kernel of ``names`` (the ones the phase's path runs)
+    launched, and add the counts to the kernel records."""
 
-    def __init__(self, specs, records):
-        self.specs, self.records = specs, records
+    def __init__(self, specs, records, names):
+        self.specs, self.records, self.names = specs, records, names
 
     def __enter__(self):
         for s in self.specs:
@@ -254,9 +402,11 @@ class MainPath:
     def __exit__(self, exc_type, *_):
         if exc_type is not None:
             return False
-        for name, n in self.counts().items():
-            if n <= 0:
+        counts = self.counts()
+        for name in self.names:
+            if counts[name] <= 0:
                 raise AssertionError(f"{name} never launched on the main path")
+        for name, n in counts.items():
             self.records[name]["launches"] += n
         return False
 
@@ -434,6 +584,115 @@ def phase_shuffle(comm, rng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving: qwen3-8b at its published widths on one card
+# ---------------------------------------------------------------------------
+def serve_model(cfg):
+    """Random weights for ``cfg`` drawn on the card from a seeded generator,
+    one tensor at a time (no f32 copy of the whole model)."""
+    from repro_torch.models import get_model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return get_model(cfg).init(gen, cfg)
+
+
+def _check_tokens(cfg, reqs, out, act):
+    for r in reqs:
+        t = out.get(r.uid)
+        if t is None or len(t) != r.max_new_tokens or \
+                t.min() < 0 or t.max() >= cfg.vocab_size:
+            raise AssertionError(f"{act}: request {r.uid} gave {t!r}")
+
+
+def phase_serve(cfg, params, devices):
+    """Both acts of python -m repro_torch.serve_lm at SERVE_ARCH's widths.
+    Returns the phase's record, the continuous engine and the requests."""
+    from repro_torch.serve_lm import (act_continuous, act_static,
+                                      make_requests)
+    reqs = make_requests(cfg, SERVE_PROMPTS, SERVE_BUDGETS)
+    tokens = sum(r.max_new_tokens for r in reqs)
+    kw = dict(max_batch=SERVE_MAX_BATCH, max_seq=SERVE_MAX_SEQ,
+              etl_rows=PIPE_ROWS)
+    (static, rep1), s1 = wall(lambda: act_static(cfg, params, reqs, devices,
+                                                 **kw))
+    _check_tokens(cfg, reqs, static, "act 1")
+    (cont, rep2, engine, asc), s2 = wall(
+        lambda: act_continuous(cfg, params, reqs, devices, **kw))
+    _check_tokens(cfg, reqs, cont, "act 2")
+    # bf16 products at different batch sizes need not round alike:
+    # reported, not asserted
+    agree = sum(int((static[r.uid] == cont[r.uid]).sum()) for r in reqs)
+    return {
+        "requests": len(reqs), "prompt_lengths": SERVE_PROMPTS,
+        "max_new_tokens": SERVE_BUDGETS, "generated_tokens": tokens,
+        "act1_static": {"wall_s": s1, "makespan_s": rep1.makespan,
+                        "tokens_per_s": tokens / s1},
+        "act2_continuous": {
+            "wall_s": s2, "makespan_s": rep2.makespan,
+            "tokens_per_s": tokens / s2,
+            "decode_rounds": engine.metrics.get("serve_decode_steps"),
+            "pipelines": sorted({e.pipeline for e in rep2.trace
+                                 if e.kind == "dispatch"}),
+            "telemetry_events": sum(e.kind == "telemetry"
+                                    for e in rep2.trace),
+            "autoscale_actions": len(asc.actions)},
+        "tokens_equal_between_acts": f"{agree}/{tokens}",
+    }, engine, reqs
+
+
+def serve_timings(engine, reqs):
+    """Prefill ms per prompt length (median of 3), decode ms per round with
+    all SERVE_MAX_BATCH slots live (median of 10 after 2), and a profile of
+    one 2048-token prefill."""
+    from repro_torch.serve import Request
+    prefill_ms = {}
+    for n in sorted(set(SERVE_PROMPTS)):
+        r = next(r for r in reqs if len(r.prompt) == n)
+        prefill_ms[n] = statistics.median(
+            wall(lambda: engine.prefill_request(r))[1] * 1e3
+            for _ in range(3))
+    for i in range(SERVE_MAX_BATCH):
+        engine.insert(engine.prefill_request(Request(
+            prompt=reqs[i].prompt[:512], max_new_tokens=64, uid=1000 + i)))
+    if engine.slots_active != SERVE_MAX_BATCH:
+        raise AssertionError(f"{engine.slots_active} live slots")
+    rounds = [wall(engine.decode_round)[1] * 1e3 for _ in range(12)]
+    longest = next(r for r in reqs if len(r.prompt) == max(SERVE_PROMPTS))
+    return {"prefill_ms": prefill_ms,
+            "decode_ms_per_round": statistics.median(rounds[2:]),
+            "decode_live_slots": SERVE_MAX_BATCH,
+            "profile_prefill_2048": profile(
+                lambda: engine.prefill_request(longest))}
+
+
+def phase_serve_f32():
+    """SERVE_ARCH's widths, 2 layers, float32: the continuous engine
+    (prefill through the kernel, plain decode) against greedy_reference (a
+    full forward through the kernel per token), token for token."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve_lm import make_requests
+    # full f32 products on both sides of the comparison: TF32 would keep
+    # about three digits and let near-tied logits flip
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2,
+                              dtype="float32")
+    params = serve_model(cfg)
+    reqs = make_requests(cfg, F32_PROMPTS, [F32_NEW] * len(F32_PROMPTS),
+                         seed=1)
+    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=512).run(reqs)
+    for r in reqs:
+        ref = greedy_reference(cfg, params, r.prompt, r.max_new_tokens)
+        if not np.array_equal(out[r.uid], ref):
+            raise AssertionError(f"f32 request {r.uid}: {out[r.uid]} != "
+                                 f"oracle {ref}")
+    return {"layers": 2, "dtype": "float32", "prompt_lengths": F32_PROMPTS,
+            "max_new_tokens": F32_NEW, "tokens_equal_oracle": True,
+            "tf32": False}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -455,21 +714,47 @@ def main() -> int:
     gen.manual_seed(0)
     records = phase_kernels(specs, gen)
 
+    radix, attention = ("radix_partition",), ("flash_attention",)
     comm = build_communicator(logical_devices(N_RANKS, "cuda:0"))
     rng = np.random.default_rng(0)
-    with MainPath(specs, records) as mp:
+    with MainPath(specs, records, radix) as mp:
         res = phase_dist(comm, rng)
     emit("dist", launches=mp.counts(), **res)
     # first-use costs of the ETL payloads, before the count and the makespans
     from repro_torch import etl
     etl.warm_up(N_RANKS, "cuda:0")
-    with MainPath(specs, records) as mp:
+    with MainPath(specs, records, radix) as mp:
         res = phase_pipeline()
     emit("pipeline", launches=mp.counts(), **res)
     one = build_communicator(logical_devices(1, "cuda:0"))
-    with MainPath(specs, records) as mp:
+    with MainPath(specs, records, radix) as mp:
         res = phase_shuffle(one, rng)
     emit("shuffle", launches=mp.counts(), **res)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import param_count
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = wall(lambda: serve_model(cfg))
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    # first-use costs (cuBLAS handles, the allocator) before the count
+    ServeEngine(cfg, params, max_batch=1, max_seq=128).run_requests(
+        [Request(prompt=np.arange(64, dtype=np.int32), max_new_tokens=2)])
+    with MainPath(specs, records, radix + attention) as mp:
+        res, engine, reqs = phase_serve(cfg, params,
+                                        logical_devices(N_RANKS, "cuda:0"))
+    counts = mp.counts()
+    res.update(serve_timings(engine, reqs))
+    emit("serve", arch=SERVE_ARCH, param_count=param_count(params),
+         weights_gb=weights_gb, init_s=init_s, launches=counts,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+    del params, engine
+    torch.cuda.empty_cache()
+    with MainPath(specs, records, attention) as mp:
+        res = phase_serve_f32()
+    emit("serve_f32", launches=mp.counts(), **res)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

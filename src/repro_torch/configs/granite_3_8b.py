@@ -1,0 +1,8 @@
+"""granite-3-8b [dense]: GQA kv=8. [hf:ibm-granite/granite-3.0-*; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=12800,
+    vocab_size=49155, head_dim=128, rope_theta=1e4, tie_embeddings=True,
+)

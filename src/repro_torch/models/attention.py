@@ -1,0 +1,182 @@
+"""Attention: GQA with RoPE and optional qk-norm.
+
+Three execution paths, mathematically identical:
+  * ``attend_full``      — naive softmax attention (small seq / oracle)
+  * ``attend_blockwise`` — flash-style online softmax over KV blocks in plain
+                           PyTorch (the JAX package's prefill default)
+  * kernels/flash_attention — the CUDA kernel, which ``attend`` launches for
+                           every prefill and forward on a CUDA tensor
+
+On any other device ``attend`` follows the JAX package's dispatch (full up
+to ``q_block`` rows, blockwise beyond), so the CPU tests compare like with
+like; ``cache_batch_axes`` probes on the ``meta`` device through the same
+plain path.
+
+The decode path attends one new token against a padded KV cache with
+per-batch lengths, in plain PyTorch (the JAX package computes it outside any
+Pallas kernel too).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
+                                       rope_sincos)
+
+NEG_INF = -1e30
+
+
+def attn_init(gen, d_model, n_heads, n_kv_heads, head_dim, qk_norm, dtype):
+    p = {"wq": dense_init(gen, (d_model, n_heads, head_dim), dtype),
+         "wk": dense_init(gen, (d_model, n_kv_heads, head_dim), dtype),
+         "wv": dense_init(gen, (d_model, n_kv_heads, head_dim), dtype),
+         "wo": dense_init(gen, (n_heads, head_dim, d_model), dtype)}
+    if qk_norm:
+        p["q_norm"] = torch.ones((head_dim,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((head_dim,), dtype=dtype, device=gen.device)
+    return p
+
+
+def qkv_project(p, x, positions, theta, qk_norm, norm_eps):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,K,hd) with RoPE applied."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    sin, cos = rope_sincos(positions, q.shape[-1], theta)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def _group(q, n_kv):
+    """(B,S,H,hd) -> (B,S,K,G,hd)."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def attend_full(q, k, v, *, causal=True, kv_valid=None):
+    """Naive attention. q (B,Sq,H,hd), k/v (B,Sk,K,hd)."""
+    n_kv = k.shape[2]
+    qg = _group(q, n_kv)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    sq, sk = q.shape[1], k.shape[1]
+    if causal:
+        # query i may attend key j iff j <= i + (Sk - Sq)  (aligned suffixes)
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kj = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(kj > qi, NEG_INF)
+    if kv_valid is not None:  # (B, Sk) bool
+        scores = scores.masked_fill(~kv_valid[:, None, None, None, :],
+                                    NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(q.shape)
+
+
+def _pick_block(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target."""
+    b = min(n, target)
+    while n % b:
+        b -= 1
+    return b
+
+
+def attend_blockwise(q, k, v, *, causal=True, q_block=512, kv_block=512):
+    """Flash-style online-softmax attention in plain PyTorch: a loop over
+    KV blocks per query block carrying (m, l, acc) in f32.  KV blocks wholly
+    above the causal diagonal are skipped; their weights are exactly 0, so
+    the result is that of the full masked sweep."""
+    b, sq, h, hd = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    q_block = _pick_block(sq, q_block)
+    kv_block = _pick_block(sk, kv_block)
+    tq, tk = sq // q_block, sk // kv_block
+    scale = hd ** -0.5
+    qg = _group(q, n_kv).reshape(b, tq, q_block, n_kv, g, hd)
+    kb = k.reshape(b, tk, kv_block, n_kv, hd)
+    vb = v.reshape(b, tk, kv_block, n_kv, hd)
+    offset = sk - sq  # suffix alignment for causal masking
+    dev = q.device
+    outs = []
+    for i in range(tq):
+        qi = qg[:, i]
+        m = torch.full((b, n_kv, g, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, n_kv, g, q_block), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((b, n_kv, g, q_block, hd), dtype=torch.float32,
+                          device=dev)
+        rows = i * q_block + torch.arange(q_block, device=dev)[:, None] \
+            + offset
+        for j in range(tk):
+            if causal and j * kv_block > i * q_block + q_block - 1 + offset:
+                break
+            s = torch.einsum("bqkgd,btkd->bkgqt", qi,
+                             kb[:, j]).float() * scale
+            if causal:
+                cols = j * kv_block + torch.arange(kv_block,
+                                                   device=dev)[None, :]
+                s = s.masked_fill(cols > rows, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            vj = vb[:, j]
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p.to(vj.dtype), vj).float()
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        # (b,k,g,q,d) -> (b,q,k,g,d) -> (b,q,h,d)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_block, h, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attend_decode(q, k_cache, v_cache, lengths):
+    """q (B,1,H,hd) new-token queries vs padded cache (B,Smax,K,hd).
+    lengths (B,) = number of valid cache entries (including the new token)."""
+    n_kv = k_cache.shape[2]
+    b, _, h, hd = q.shape
+    qg = q.reshape(b, n_kv, h // n_kv, hd)
+    scale = hd ** -0.5
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float() * scale
+    valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] \
+        < lengths[:, None]                                      # (B,Smax)
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", w, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, positions):
+    """Write one token per sequence at ``positions`` (B,), IN PLACE: only
+    row ``(b, positions[b])`` of each sequence changes.  Returns the caches
+    (the JAX twin returns updated copies)."""
+    bidx = torch.arange(k_new.shape[0], device=k_cache.device)
+    pos = positions.long()
+    k_cache[bidx, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[bidx, pos] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnMode:
+    """How the attention core executes off the card (on the card every
+    prefill and forward goes through the kernel)."""
+    kind: str = "blockwise"   # full | blockwise
+    q_block: int = 512
+    kv_block: int = 512
+
+
+def attend(q, k, v, *, causal, mode: AttnMode):
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal)
+    if mode.kind == "full" or q.shape[1] <= mode.q_block:
+        return attend_full(q, k, v, causal=causal)
+    return attend_blockwise(q, k, v, causal=causal, q_block=mode.q_block,
+                            kv_block=mode.kv_block)

@@ -208,7 +208,8 @@ def test_port_sources_import_neither_jax_nor_repro():
 def test_port_imports_without_loading_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.etl, repro_torch.core, "
             "repro_torch.dataframe.ops_dist, repro_torch.dataframe.shuffle, "
-            "repro_torch.obs\n"
+            "repro_torch.obs, repro_torch.serve_lm, "
+            "repro_torch.models.convert\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the dataframe path on logical ranks of ``cuda:0``.
+version, the dataframe path on logical ranks of ``cuda:0``, and the serving
+engines' tokens against the port's oracle.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.dataframe import reference as R
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
 )
@@ -96,3 +98,97 @@ def test_radix_bucket_on_the_card_verifies(cuda):
     chunks, hist = radix_bucket(cols, tgt, 8, device=cuda, verify=True)
     for j, c in enumerate(chunks):
         np.testing.assert_array_equal(c["key"], cols["key"][tgt == j])
+
+
+# the sweep of tests/test_kernels.py plus the smallest and a ragged length
+ATTN_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 130, 8, 8, 32),
+              (2, 384, 6, 3, 128), (1, 1, 4, 2, 16), (1, 17, 8, 2, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd", ATTN_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kh, hd, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v).float(),
+                               atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        # the plain version in f32 leaves only the kernel's own roundings
+        torch.testing.assert_close(
+            out.float(), fa.flash_attention_plain(q.float(), k.float(),
+                                                  v.float()),
+            atol=4e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_non_causal_and_strided(cuda, dtype):
+    """Other kv lengths without the mask; q read through its strides (a
+    head-sliced view) and k/v as slices of a wider head dim.  The f32
+    kernel takes rows at any alignment; the bf16 kernel copies rows 16
+    bytes a thread, so a row stride of 68 elements raises."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 70, 8, 64, generator=gen, device=cuda).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    widths = (72,) if dtype == torch.bfloat16 else (68, 72)
+    for width in widths:
+        k, v = (torch.randn(2, 150, 2, width, generator=gen, device=cuda)
+                .to(dtype)[..., :64] for _ in range(2))
+        for qq in (q[:, :, ::2], q[:, :, :4]):
+            out = fa.flash_attention(qq, k, v, causal=False)
+            torch.testing.assert_close(
+                out.float(), fa.flash_attention_plain(qq, k, v,
+                                                      causal=False).float(),
+                atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        k = torch.zeros(2, 150, 2, 68, dtype=dtype, device=cuda)[..., :64]
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, k, k, causal=False)
+
+
+def test_flash_attention_kernel_raises_not_falls_back(cuda):
+    q = torch.zeros(1, 8, 4, 48, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 4, 16, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, torch.zeros(1, 9, 4, 16, device=cuda),
+                           torch.zeros(1, 9, 4, 16, device=cuda))
+
+
+def test_f32_token_check_at_reduced_widths(cuda):
+    """Prefill through the kernel plus plain decode, in the continuous
+    engine, against a full forward through the kernel per token (the
+    port's greedy_reference).  TF32 stays off: the products are full f32."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve_lm import make_requests
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(reduced(get_config("qwen3-8b")), n_layers=2)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    reqs = make_requests(cfg, [30, 7, 19], [6, 6, 6])
+    before = fa.flash_attention.launches
+    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=64).run(reqs)
+    assert fa.flash_attention.launches - before == 2 * len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+
+
+def test_serve_lm_on_the_card(cuda):
+    from repro_torch import serve_lm
+    before = fa.flash_attention.launches, radix_partition.launches
+    serve_lm.main(["--device", str(cuda)])
+    assert fa.flash_attention.launches > before[0]
+    assert radix_partition.launches > before[1]

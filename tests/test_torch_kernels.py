@@ -1,10 +1,13 @@
-"""The port's radix_partition against the JAX package's.
+"""The port's kernels against the JAX package's: radix_partition and
+flash_attention.
 
-On the CPU the port's wrapper takes its plain PyTorch version; the JAX
-kernel runs in interpret mode, as ``tests/test_kernels.py`` runs it.  All
-outputs are integers and are compared bit-exact.  The CUDA kernel itself
-runs only on the card: ``tests/test_torch_cuda.py``.
+On the CPU the port's wrappers take their plain PyTorch versions; the JAX
+kernels run in interpret mode, as ``tests/test_kernels.py`` runs them.
+radix_partition's outputs are integers and are compared bit-exact;
+flash_attention's at the tolerances of ``tests/test_kernels.py``.  The
+CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,10 +15,13 @@ import torch
 
 from tests._hypothesis_compat import given, settings, st
 
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro.kernels.radix_partition.ops import radix_partition as jax_radix
 from repro.kernels.radix_partition.ref import (
     destinations_ref as jax_destinations_ref,
 )
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
 )
@@ -167,3 +173,159 @@ def test_kernel_build_takes_its_constants_from_the_wrapper(monkeypatch,
     assert len(fn.argtypes) == 8
     src = ops._SOURCE.read_text()
     assert "#define TILE" not in src and "#define MAX_BUCKETS" not in src
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the port's plain version (what a CPU tensor runs) against
+# the JAX kernel in interpret mode and the JAX oracle
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(b, s, h, kh, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+
+def _jax_oracle(q, k, v, dtype):
+    """The JAX attention_ref, under jax.jit (one compile per shape where
+    eager JAX compiles each of its ops per shape)."""
+    q, k, v = (jnp.moveaxis(jnp.asarray(x, dtype), 2, 1) for x in (q, k, v))
+    ref = jax.jit(jax_attn_ref, static_argnames="causal")(q, k, v,
+                                                         causal=True)
+    return np.asarray(jnp.moveaxis(ref, 1, 2), np.float32)
+
+
+def _port_attn(fn, q, k, v, dtype):
+    out = fn(*(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+             causal=True)
+    assert out.dtype == dtype and out.shape == q.shape
+    return out.float().numpy()
+
+
+def test_flash_attention_matches_jax_kernel_and_oracle():
+    """(b,s,h,kh,hd) = (1,128,4,4,32) f32, the case tests/test_kernels.py
+    runs in tier-1, at its tolerance."""
+    q, k, v = _attn_inputs(1, 128, 4, 4, 32, np.float32)
+    got = _port_attn(fa.flash_attention, q, k, v, torch.float32)
+    kern = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, q_block=128,
+                                kv_block=128, interpret=True))
+    np.testing.assert_allclose(got, kern, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, _jax_oracle(q, k, v, jnp.float32),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (2, 256, 8, 2, 64),      # GQA 4x
+    (1, 130, 8, 8, 32),      # unaligned seq
+    (2, 384, 6, 3, 128),     # large head_dim
+    (1, 17, 4, 1, 16),       # ragged, smallest head_dim
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_sweep_matches_jax_oracle(b, s, h, kh, hd, dtype):
+    q, k, v = _attn_inputs(b, s, h, kh, hd, dtype, seed=s)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    got = _port_attn(fa.flash_attention_plain, q, k, v,
+                     getattr(torch, dtype))
+    np.testing.assert_allclose(got, _jax_oracle(q, k, v, getattr(jnp, dtype)),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_attention_cpu_path_is_the_plain_version():
+    q, k, v = (torch.from_numpy(x) for x in
+               _attn_inputs(1, 40, 4, 2, 16, np.float32))
+    before = fa.flash_attention.launches
+    assert torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention_plain(q, k, v))
+    assert fa.flash_attention.launches == before     # no kernel on the CPU
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,dtype,causal", [
+    ((1, 8, 4, 48), (1, 8, 4, 48), torch.float32, True),    # head_dim 48
+    ((1, 8, 4, 256), (1, 8, 4, 256), torch.float32, True),  # above the max
+    ((1, 8, 4, 16), (1, 12, 4, 16), torch.float32, True),   # causal Sq != Sk
+    ((1, 8, 4, 16), (1, 8, 3, 16), torch.float32, False),   # 4 % 3 heads
+    ((1, 8, 4, 16), (1, 8, 4, 16), torch.float16, True),    # dtype
+    ((8, 4, 16), (8, 4, 16), torch.float32, True),          # 3-D
+])
+def test_flash_attention_rejects_what_the_kernel_does_not_take(
+        q_shape, kv_shape, dtype, causal):
+    q = torch.zeros(q_shape, dtype=dtype)
+    kv = torch.zeros(kv_shape, dtype=dtype)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv, causal=causal)
+    with pytest.raises(ValueError):
+        fa.flash_attention_plain(q, kv, kv, causal=causal)
+
+
+def test_flash_attention_rejects_mixed_inputs_and_other_devices():
+    q = torch.zeros(1, 8, 4, 16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        fa.flash_attention(*(torch.zeros(1, 8, 4, 16, device="meta"),) * 3)
+    with pytest.raises(ValueError):      # head dim not contiguous
+        fa.flash_attention(q, q, torch.zeros(1, 8, 16, 4).transpose(2, 3))
+    with pytest.raises(TypeError):
+        fa.flash_attention(np.zeros((1, 8, 4, 16)), q, q)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64],  # stride
+    lambda: torch.zeros(1 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)[1:]
+    .view(1, 8, 2, 64),                                               # pointer
+])
+def test_flash_attention_rejects_unaligned_bf16_rows(make):
+    """The bf16 kernel copies rows 16 bytes a thread; f32 takes any rows."""
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    kv = make()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, kv, kv)
+    assert fa.flash_attention(q.float(), kv.float(), kv.float()).shape == \
+        q.shape
+    f32 = torch.zeros(1, 8, 2, 68)[..., :64]
+    assert fa.flash_attention(q.float(), f32, f32).shape == q.shape
+
+
+def test_flash_attention_non_causal_takes_other_lengths():
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((1, 5, 4, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 12, 2, 16))
+                             .astype(np.float32)) for _ in range(2))
+    want = jax_attn_ref(*(jnp.moveaxis(jnp.asarray(x.numpy()), 2, 1)
+                          for x in (q, k, v)), causal=False)
+    np.testing.assert_allclose(
+        fa.flash_attention(q, k, v, causal=False).numpy(),
+        np.asarray(jnp.moveaxis(want, 1, 2)), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_build_takes_its_constants_from_the_wrapper(
+        monkeypatch, tmp_path):
+    """nvcc gets the tile sizes and the largest head dim from ops.py as -D
+    flags (the source defines none of them), and the entry point's
+    signature is set once."""
+    import subprocess
+    import types
+    from repro_torch.kernels import _nvcc
+    cmds = []
+
+    def fake_nvcc(cmd, **_):
+        cmds.append(cmd)
+        (tmp_path / cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_nvcc, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_nvcc.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(_nvcc.ctypes, "CDLL", lambda _: types.SimpleNamespace(
+        flash_attention_launch=types.SimpleNamespace()))
+    monkeypatch.setattr(_nvcc, "_loaded", {})
+    monkeypatch.setattr(_nvcc, "build_log", {})
+    monkeypatch.setattr(fa, "_entry", None)
+    fn = fa.load()
+    assert fa.load() is fn and len(cmds) == 1
+    for name in ("BLOCK_Q", "BLOCK_K", "MAX_HEAD_DIM"):
+        assert f"-D{name}={getattr(fa, name)}" in cmds[0]
+        assert f"#define {name}" not in fa._SOURCE.read_text()
+    assert len(fn.argtypes) == 15

@@ -1,0 +1,336 @@
+"""The port's dense LM against the JAX package's, on the CPU.
+
+Inputs are drawn with numpy from a seed and fed to both packages; model
+parameters are the JAX ``init`` params carried across by
+``repro_torch.models.convert.params_from_jax``.  Everything is float32 at
+the reduced widths the JAX tests use, so the two agree to float32 rounding:
+1e-5 here.  The JAX side of the attention and model comparisons runs under
+``jax.jit``: the same functions, compiled once per shape where eager JAX
+compiles every op per shape and traces a ``lax.scan`` anew on every call.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, list_archs, reduced
+from repro.models import attention as JA
+from repro.models import get_model as jax_get_model
+from repro.models import layers as JL
+from repro.serve.continuous import cache_batch_axes as jax_cache_batch_axes
+
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import reduced as t_reduced
+from repro_torch.models import attention as TA
+from repro_torch.models import get_model
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serve.continuous import cache_batch_axes
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+DENSE = [a for a in list_archs() if get_config(a).family == "dense"]
+
+
+def _np(x, dtype=np.float32):
+    return np.asarray(x, dtype)
+
+
+def _jit(fn, *static):
+    """``fn`` under jax.jit, with the named or numbered arguments static."""
+    names = tuple(a for a in static if isinstance(a, str))
+    nums = tuple(a for a in static if isinstance(a, int))
+    return jax.jit(fn, static_argnames=names, static_argnums=nums)
+
+
+def _close(port, ref, **tol):
+    np.testing.assert_allclose(_np(port.detach()), _np(ref), **(tol or TOL))
+
+
+def _randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _configs(arch, n_layers=2):
+    jcfg = dataclasses.replace(reduced(get_config(arch)), n_layers=n_layers)
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)),
+                               n_layers=n_layers)
+    return jcfg, tcfg
+
+
+def _models(arch, seed=0):
+    jcfg, tcfg = _configs(arch)
+    params = jax_get_model(jcfg).init(jax.random.key(seed), jcfg)
+    model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    return jcfg, tcfg, params, model
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+def test_configs_are_the_jax_configs():
+    for arch in list_archs():
+        assert dataclasses.asdict(t_get_config(arch)) == \
+            dataclasses.asdict(get_config(arch))
+        assert dataclasses.asdict(t_reduced(t_get_config(arch))) == \
+            dataclasses.asdict(reduced(get_config(arch)))
+        assert t_get_config(arch).param_count() == \
+            get_config(arch).param_count()
+
+
+@pytest.mark.parametrize("shape", [(3, 16), (2, 5, 4, 16)])
+def test_rms_norm(shape):
+    rng = np.random.default_rng(0)
+    x, w = _randn(rng, *shape), _randn(rng, shape[-1])
+    _close(TL.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6),
+           JL.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6))
+
+
+def test_rope():
+    rng = np.random.default_rng(1)
+    pos = rng.integers(0, 64, (2, 7)).astype(np.int32)
+    x = _randn(rng, 2, 7, 4, 16)
+    js, jc = JL.rope_sincos(jnp.asarray(pos), 16, 1e4)
+    ts, tc = TL.rope_sincos(torch.from_numpy(pos), 16, 1e4)
+    _close(ts, js)
+    _close(tc, jc)
+    _close(TL.apply_rope(torch.from_numpy(x), ts, tc),
+           JL.apply_rope(jnp.asarray(x), js, jc))
+
+
+def test_mlp_apply():
+    rng = np.random.default_rng(2)
+    p = {k: _randn(rng, *s) * 0.1 for k, s in
+         (("wg", (16, 32)), ("wi", (16, 32)), ("wo", (32, 16)))}
+    x = _randn(rng, 2, 5, 16)
+    _close(TL.mlp_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x)),
+           JL.mlp_apply({k: jnp.asarray(v) for k, v in p.items()},
+                        jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_logits_apply(tie):
+    rng = np.random.default_rng(3)
+    p = {"embedding": _randn(rng, 40, 16)}
+    if not tie:
+        p["lm_head"] = _randn(rng, 16, 40)
+    x = _randn(rng, 2, 3, 16)
+    _close(TL.logits_apply({k: torch.from_numpy(v) for k, v in p.items()},
+                           torch.from_numpy(x), tie),
+           JL.logits_apply({k: jnp.asarray(v) for k, v in p.items()},
+                           jnp.asarray(x), tie))
+    tok = rng.integers(0, 40, (2, 3))
+    _close(TL.embed_apply({"embedding": torch.from_numpy(p["embedding"])},
+                          torch.from_numpy(tok)),
+           JL.embed_apply({"embedding": jnp.asarray(p["embedding"])},
+                          jnp.asarray(tok)))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_loss(masked):
+    rng = np.random.default_rng(4)
+    logits = _randn(rng, 2, 6, 30) * 3
+    labels = rng.integers(0, 30, (2, 6)).astype(np.int32)
+    mask = (rng.random((2, 6)) > 0.3).astype(np.float32) if masked else None
+    got = TL.cross_entropy_loss(
+        torch.from_numpy(logits), torch.from_numpy(labels),
+        None if mask is None else torch.from_numpy(mask))
+    want = JL.cross_entropy_loss(
+        jnp.asarray(logits), jnp.asarray(labels),
+        None if mask is None else jnp.asarray(mask))
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def _qkv(seed, b, s, h, kh, hd, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    return (_randn(rng, b, s, h, hd), _randn(rng, b, sk, kh, hd),
+            _randn(rng, b, sk, kh, hd))
+
+
+@pytest.mark.parametrize("qk_norm", [False, True])
+def test_qkv_project(qk_norm):
+    rng = np.random.default_rng(5)
+    p = {"wq": _randn(rng, 16, 4, 8) * 0.3, "wk": _randn(rng, 16, 2, 8) * 0.3,
+         "wv": _randn(rng, 16, 2, 8) * 0.3}
+    if qk_norm:
+        p["q_norm"] = _randn(rng, 8)
+        p["k_norm"] = _randn(rng, 8)
+    x = _randn(rng, 2, 5, 16)
+    pos = np.broadcast_to(np.arange(5, dtype=np.int32), (2, 5))
+    got = TA.qkv_project({k: torch.from_numpy(v) for k, v in p.items()},
+                         torch.from_numpy(x), torch.from_numpy(pos.copy()),
+                         1e6, qk_norm, 1e-6)
+    want = _jit(JA.qkv_project, 3, 4, 5)(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        jnp.asarray(pos), 1e6, qk_norm, 1e-6)
+    for g, w in zip(got, want, strict=True):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("h,kh", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("s", [32, 96, 128])
+def test_attend_full(h, kh, s):
+    q, k, v = _qkv(0, 2, s, h, kh, 32)
+    _close(TA.attend_full(*map(torch.from_numpy, (q, k, v)), causal=True),
+           _jit(JA.attend_full, "causal")(*map(jnp.asarray, (q, k, v)),
+                                          causal=True))
+
+
+def test_attend_full_non_causal_and_suffix_aligned():
+    q, k, v = _qkv(1, 2, 5, 4, 2, 16, sk=12)
+    for causal in (False, True):
+        _close(TA.attend_full(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal),
+               _jit(JA.attend_full, "causal")(*map(jnp.asarray, (q, k, v)),
+                                              causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attend_blockwise_long(causal):
+    """S > 512: both packages' ``attend`` take the blockwise path."""
+    q, k, v = _qkv(2, 1, 1024, 4, 2, 16)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = _jit(JA.attend_blockwise, "causal")(jq, jk, jv, causal=causal)
+    _close(TA.attend_blockwise(tq, tk, tv, causal=causal), want)
+    _close(TA.attend(tq, tk, tv, causal=causal, mode=TA.AttnMode()),
+           _jit(JA.attend, "causal", "mode")(jq, jk, jv, causal=causal,
+                                             mode=JA.AttnMode()))
+
+
+def test_attend_blockwise_small_blocks_matches_jax():
+    q, k, v = _qkv(3, 2, 96, 8, 2, 32)
+    _close(TA.attend_blockwise(*map(torch.from_numpy, (q, k, v)),
+                               causal=True, q_block=32, kv_block=32),
+           _jit(JA.attend_blockwise, "causal", "q_block", "kv_block")(
+               *map(jnp.asarray, (q, k, v)), causal=True, q_block=32,
+               kv_block=32))
+
+
+def test_attend_decode_and_cache_update():
+    b, s, h, kh, hd, smax = 2, 12, 4, 2, 16, 20
+    q, k, v = _qkv(4, b, s, h, kh, hd)
+    kc = np.zeros((b, smax, kh, hd), np.float32)
+    vc = np.zeros((b, smax, kh, hd), np.float32)
+    kc[:, :s - 1], vc[:, :s - 1] = k[:, :-1], v[:, :-1]
+    pos = np.full((b,), s - 1, np.int32)
+    jk, jv = JA.cache_update(jnp.asarray(kc), jnp.asarray(vc),
+                             jnp.asarray(k[:, -1:]), jnp.asarray(v[:, -1:]),
+                             jnp.asarray(pos))
+    tk, tv = TA.cache_update(torch.from_numpy(kc), torch.from_numpy(vc),
+                             torch.from_numpy(k[:, -1:]),
+                             torch.from_numpy(v[:, -1:]),
+                             torch.from_numpy(pos))
+    _close(tk, jk)
+    _close(tv, jv)
+    lengths = np.asarray([s, s - 3], np.int32)
+    _close(TA.attend_decode(torch.from_numpy(q[:, -1:]), tk, tv,
+                            torch.from_numpy(lengths)),
+           jax.jit(JA.attend_decode)(jnp.asarray(q[:, -1:]), jk, jv,
+                                     jnp.asarray(lengths)))
+
+
+def test_cache_update_writes_only_each_row():
+    kc = torch.zeros(3, 8, 2, 4)
+    vc = torch.zeros(3, 8, 2, 4)
+    new = torch.ones(3, 1, 2, 4)
+    TA.cache_update(kc, vc, new, new, torch.tensor([0, 3, 7]))
+    for i, p in enumerate([0, 3, 7]):
+        assert float(kc[i, p].sum()) == float(kc[i].sum()) == 8
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+def _batch(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+def test_forward_and_loss_match_jax(arch):
+    jcfg, tcfg, params, model = _models(arch)
+    japi, api = jax_get_model(jcfg), get_model(tcfg)
+    toks = _batch(jcfg, 2, 9, 1)
+    labels = _batch(jcfg, 2, 9, 2)
+    with torch.inference_mode():
+        logits = api.forward(model, tcfg, {"tokens": torch.from_numpy(toks)})
+        loss = api.loss_fn(model, tcfg, {"tokens": torch.from_numpy(toks),
+                                         "labels": torch.from_numpy(labels)})
+    _close(logits, _jit(japi.forward, 1)(params, jcfg,
+                                         {"tokens": jnp.asarray(toks)}))
+    _close(loss, _jit(japi.loss_fn, 1)(params, jcfg, {
+        "tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+def test_prefill_and_decode_match_jax(arch):
+    jcfg, tcfg, params, model = _models(arch)
+    japi, api = jax_get_model(jcfg), get_model(tcfg)
+    toks = _batch(jcfg, 2, 9, 3)
+    jdecode = _jit(japi.decode_step, 1)
+    jc, jl = _jit(japi.prefill, 1, 3)(
+        params, jcfg, {"tokens": jnp.asarray(toks[:, :6])}, 16)
+    with torch.inference_mode():
+        tc, tl = api.prefill(model, tcfg,
+                             {"tokens": torch.from_numpy(toks[:, :6])}, 16)
+    _close(tl, jl)
+    for name in ("k", "v"):
+        assert tuple(tc[name].shape) == jc[name].shape
+        _close(tc[name], jc[name])
+    for t in range(6, 9):
+        jl, jc = jdecode(params, jcfg, {
+            "tokens": jnp.asarray(toks[:, t:t + 1]),
+            "positions": jnp.full((2,), t, jnp.int32)}, jc)
+        with torch.inference_mode():
+            tl, tc = api.decode_step(model, tcfg, {
+                "tokens": torch.from_numpy(toks[:, t:t + 1]),
+                "positions": torch.full((2,), t)}, tc)
+        _close(tl, jl)
+        _close(tc["k"], jc["k"])
+        _close(tc["v"], jc["v"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+def test_cache_batch_axes_match_jax(arch):
+    jcfg, tcfg, params, model = _models(arch)
+    axes, spec = cache_batch_axes(tcfg, model, 24)
+    jaxes, jspec = jax_cache_batch_axes(jcfg, params, 24)
+    assert axes == dict(jaxes)
+    for name in ("k", "v"):
+        assert tuple(spec[name].shape) == jspec[name].shape
+        assert spec[name].device.type == "meta"
+
+
+def test_init_draws_the_jax_shapes_from_a_generator():
+    jcfg, tcfg = _configs("qwen3-8b")
+    jparams = jax_get_model(jcfg).init(jax.random.key(0), jcfg)
+    ref = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    gen = torch.Generator().manual_seed(7)
+    model = get_model(tcfg).init(gen, tcfg)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    assert shapes == {n: tuple(p.shape) for n, p in ref.named_parameters()}
+    assert TT.param_count(model) == tcfg.param_count()
+    again = get_model(tcfg).init(torch.Generator().manual_seed(7), tcfg)
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 again.parameters()))
+    emb = model.embed["embedding"]
+    assert float(emb.abs().max()) <= 2.0 / tcfg.vocab_size ** 0.5
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs() if a not in DENSE])
+def test_registry_raises_for_families_not_ported(arch):
+    cfg = t_reduced(t_get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
+        get_model(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init(torch.Generator(), cfg)
