@@ -12,9 +12,10 @@ Phases, one JSON line each:
             main-path phases give it and at a sweep of sizes (radix_partition
             bit-exact; flash_attention within 2e-5 in f32 and 2e-2 in bf16,
             and a bf16 result also within 4e-3 + 2e-2 * |plain| of the
-            plain version run in f32),
+            plain version run in f32; ssm_scan's y and final state within
+            1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes),
             and its time beside its bound, the plain version's and one
-            PyTorch call computing the same function
+            PyTorch call computing the same function, where there is one
   dist      dist sort, join and groupby-sum at 35 million rows on 4 logical
             ranks of cuda:0, checked against numpy
   pipeline  the ETL pipelines (python -m repro_torch.etl) under the
@@ -30,14 +31,22 @@ Phases, one JSON line each:
             a profile of one 2048-token prefill
   serve_f32 the same widths with 2 layers in float32 (TF32 off): the
             continuous engine's tokens equal the full-forward oracle's
+  serve_ssm falcon-mamba-7b at its published widths in bf16, the same two
+            acts, requests and timings as serve (after the qwen3-8b weights
+            are freed); ssm_scan launches once per layer per prefill
+  serve_ssm_f32  falcon-mamba-7b's widths with 2 layers in float32 (TF32
+            off for matmuls and cuDNN): the continuous engine's tokens equal
+            the full-forward oracle's
 
-The main-path phases (dist, pipeline, shuffle, serve, serve_f32) each start
-with every kernel's launch count at 0 and fail unless each kernel that the
-phase's path runs launched.  Then come the kernel summary line, the card's
-name and power limit as nvidia-smi gives them, and last
-``{"ok": true, "device": {...}}``.  Any failure raises
-and exits non-zero; without a CUDA device the script exits non-zero at once.
+The main-path phases (dist, pipeline, shuffle and the four serve phases)
+each start with every kernel's launch count at 0 and fail unless each
+kernel that the phase's path runs launched (serve_ssm: exactly once per
+layer per prefill).  Then come the kernel summary line, the card's name
+and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+without a CUDA device the script exits non-zero at once.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -57,11 +66,16 @@ N_RANKS = 4
 PIPE_ROWS = 2_000_000           # rows per ETL task in the pipeline phase
 SHUFFLE_BUCKETS = 8             # radix_bucket's buckets in the shuffle phase
 SERVE_ARCH = "qwen3-8b"
+SSM_ARCH = "falcon-mamba-7b"
 SERVE_PROMPTS = [2048, 2048, 1024, 1024, 512, 512, 1536, 768]
 SERVE_BUDGETS = [16, 32] * 4    # max_new_tokens of each serve request
 SERVE_MAX_BATCH, SERVE_MAX_SEQ = 4, 4096
 F32_PROMPTS, F32_NEW = [300, 77, 129], 8      # the f32 token check
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
+H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (same)
+# exponentials: 16 a clock per SM (CUDA programming guide, compute
+# capability 9.0), 132 SMs at the 1.98 GHz boost clock
+H100_EXP_PER_S = 16 * 132 * 1.98e9
 U64 = np.uint64
 
 
@@ -109,7 +123,8 @@ RADIX_KERNELS = ("count_kernel", "scan_tiles_kernel", "scan_hist_kernel",
                  "rank_kernel")
 # device-kernel names of each port kernel, as the profiler reports them
 KERNEL_NAMES = {"radix_partition": RADIX_KERNELS,
-                "flash_attention": ("flash_attention_",)}
+                "flash_attention": ("flash_attention_",),
+                "ssm_scan": ("ssm_scan_kernel",)}
 
 
 def profile(fn) -> dict:
@@ -307,8 +322,104 @@ def _attention_spec():
     }
 
 
+SSM_TOL = 1e-5                  # tests/test_kernels.py's f32 tolerance
+F32, BF16 = torch.float32, torch.bfloat16
+SSM_MODEL_MIX = (F32, BF16, BF16, BF16)     # dt, x, Bm, Cm in a bf16 model
+SSM_F32_MIX = (F32,) * 4
+
+
+def _ssm_spec():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    cfg = get_config(SSM_ARCH)
+    d_inner, n_state, dt_rank = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+
+    def inputs(shape, gen):
+        """dt = softplus(normal), A < 0, and Bm, Cm as column slices of
+        (B, S, dt_rank + 2N) tensors, as the model's x_db gives them."""
+        b, s, d, n, (t_dt, t_x, t_b, t_c) = shape
+
+        def randn(*dims):
+            return torch.randn(dims, generator=gen, device="cuda")
+        width = dt_rank + 2 * n
+        return (torch.nn.functional.softplus(randn(b, s, d)).to(t_dt),
+                -torch.exp(0.3 * randn(d, n)),
+                randn(b, s, width).to(t_b)[..., dt_rank:dt_rank + n],
+                randn(b, s, width).to(t_c)[..., dt_rank + n:],
+                randn(b, s, d).to(t_x))
+
+    def compare(out, ref, args, yardstick=False):
+        """Largest absolute difference of y and of the final state, and
+        whether every element is within SSM_TOL + SSM_TOL * |plain|: both
+        sides compute in f32 from the same values."""
+        err, ok = 0.0, True
+        for o, r in zip(out, ref, strict=True):
+            diff = (o - r).abs()
+            err = max(err, float(diff.max()))
+            ok = ok and bool((diff <= SSM_TOL + SSM_TOL * r.abs()).all())
+        return err, ok, {}
+
+    def bound(shape):
+        """Bytes: dt, x, Bm, Cm and A read once, y and the state written
+        once.  Operations: B*S*D*N exponentials and 6 f32 FLOPs each
+        (dt*A, the state's multiply-add, dt*x*B, the C product's
+        multiply-add)."""
+        b, s, d, n, dtypes = shape
+        size = {F32: 4, BF16: 2}
+        t_dt, t_x, t_b, t_c = (size[t] for t in dtypes)
+        nbytes = (b * s * d * (t_dt + t_x + 4) + b * s * n * (t_b + t_c)
+                  + d * n * 4 + b * d * n * 4)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = max(b * s * d * n / H100_EXP_PER_S,
+                     6 * b * s * d * n / H100_F32_FLOPS) * 1e3
+        return max(by_ops, by_bytes), \
+            "operations" if by_ops >= by_bytes else "bytes"
+
+    def describe(shape):
+        b, s, d, n, dtypes = shape
+        return {"B": b, "S": s, "D": d, "N": n, "dtypes": dict(zip(
+            ("dt", "x", "Bm", "Cm"),
+            (str(t).removeprefix("torch.") for t in dtypes), strict=True))}
+
+    return {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:49",
+        "build": ssm.load,
+        "wrapper": ssm.ssm_scan,
+        "plain": ssm.ssm_scan_plain,
+        "kwargs": {"return_state": True},       # as every prefill calls it
+        "library": None,        # no one PyTorch call computes the scan
+        "inputs": inputs, "compare": compare, "bound": bound,
+        "tolerance": f"|kernel - plain| <= {SSM_TOL} + {SSM_TOL} * |plain| "
+                     f"for y and the final state, any input dtypes",
+        "describe": describe,
+        # (B, S, D, N, dtypes) of every prefill and forward of the SSM serve
+        # phases; the first is the timed one.  serve_ssm_f32's oracle runs a
+        # forward at every length from the prompt's to the prompt's plus
+        # F32_NEW - 1, and the engine's prefill at the prompt's.
+        "main_shapes": (
+            *((1, s, d_inner, n_state, SSM_MODEL_MIX)
+              for s in sorted(set(SERVE_PROMPTS), reverse=True)),
+            *((2, s, d_inner, n_state, SSM_MODEL_MIX) for s in sorted(
+                {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
+            *((1, s + d, d_inner, n_state, SSM_F32_MIX) for s in F32_PROMPTS
+              for d in range(F32_NEW)),
+        ),
+        # the JAX sweep (tests/test_kernels.py), then ragged S and D, each
+        # all-f32, with the model's mix, and with another mix
+        "sweep": tuple(
+            (b, s, d, n, mix)
+            for b, s, d, n in ((1, 64, 32, 8), (2, 128, 64, 16),
+                               (1, 96, 48, 4), (1, 77, 100, 16),
+                               (2, 300, 40, 5), (1, 300, 1000, 16))
+            for mix in (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16))),
+    }
+
+
 def kernel_specs():
-    return [_radix_spec(), _attention_spec()]
+    return [_radix_spec(), _attention_spec(), _ssm_spec()]
 
 
 def phase_build(specs):
@@ -343,10 +454,11 @@ def phase_kernels(specs, gen):
         checks, max_err = [], 0
         shapes = [(s, True) for s in spec["main_shapes"]] + [
             (s, False) for s in spec["sweep"]]
+        kw = spec.get("kwargs", {})
         for shape, main_path in shapes:
             args = spec["inputs"](shape, gen)
-            out = spec["wrapper"](*args)
-            ref = spec["plain"](*args)
+            out = spec["wrapper"](*args, **kw)
+            ref = spec["plain"](*args, **kw)
             sync()
             err, ok, info = spec["compare"](out, ref, args)
             max_err = max(max_err, err)
@@ -359,15 +471,18 @@ def phase_kernels(specs, gen):
             del args, out, ref
         shape = spec["main_shapes"][0]
         args = spec["inputs"](shape, gen)
-        lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),
-                                             spec["plain"](*args), args,
-                                             yardstick=True)
-        if not lib_ok:
-            raise AssertionError(f"{spec['name']}: library yardstick differs "
-                                 f"by {lib_err}")
-        ms = time_ms(lambda: spec["wrapper"](*args))
-        plain_ms = time_ms(lambda: spec["plain"](*args), reps=5, warmup=1)
-        library_ms = time_ms(lambda: spec["library"](*args))
+        lib_err = library_ms = None
+        if spec["library"] is not None:
+            lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),
+                                                 spec["plain"](*args), args,
+                                                 yardstick=True)
+            if not lib_ok:
+                raise AssertionError(f"{spec['name']}: library yardstick "
+                                     f"differs by {lib_err}")
+            library_ms = time_ms(lambda: spec["library"](*args))
+        ms = time_ms(lambda: spec["wrapper"](*args, **kw))
+        plain_ms = time_ms(lambda: spec["plain"](*args, **kw), reps=5,
+                           warmup=1)
         bound_ms, bound_by = spec["bound"](shape)
         records[spec["name"]] = {
             "name": spec["name"], "route": spec["route"],
@@ -585,7 +700,7 @@ def phase_shuffle(comm, rng):
 
 
 # ---------------------------------------------------------------------------
-# serving: qwen3-8b at its published widths on one card
+# serving: qwen3-8b and falcon-mamba-7b at their published widths on one card
 # ---------------------------------------------------------------------------
 def serve_model(cfg):
     """Random weights for ``cfg`` drawn on the card from a seeded generator,
@@ -605,7 +720,7 @@ def _check_tokens(cfg, reqs, out, act):
 
 
 def phase_serve(cfg, params, devices):
-    """Both acts of python -m repro_torch.serve_lm at SERVE_ARCH's widths.
+    """Both acts of python -m repro_torch.serve_lm at ``cfg``'s widths.
     Returns the phase's record, the continuous engine and the requests."""
     from repro_torch.serve_lm import (act_continuous, act_static,
                                       make_requests)
@@ -622,9 +737,14 @@ def phase_serve(cfg, params, devices):
     # bf16 products at different batch sizes need not round alike:
     # reported, not asserted
     agree = sum(int((static[r.uid] == cont[r.uid]).sum()) for r in reqs)
+    # act 1 prefills each length group in batches of max_batch, act 2 each
+    # request alone
+    prefills = sum(-(-SERVE_PROMPTS.count(n) // SERVE_MAX_BATCH)
+                   for n in set(SERVE_PROMPTS)) + len(reqs)
     return {
         "requests": len(reqs), "prompt_lengths": SERVE_PROMPTS,
         "max_new_tokens": SERVE_BUDGETS, "generated_tokens": tokens,
+        "prefills": prefills,
         "act1_static": {"wall_s": s1, "makespan_s": rep1.makespan,
                         "tokens_per_s": tokens / s1},
         "act2_continuous": {
@@ -665,20 +785,58 @@ def serve_timings(engine, reqs):
                 lambda: engine.prefill_request(longest))}
 
 
-def phase_serve_f32():
-    """SERVE_ARCH's widths, 2 layers, float32: the continuous engine
-    (prefill through the kernel, plain decode) against greedy_reference (a
-    full forward through the kernel per token), token for token."""
+def run_serve(arch, specs, records, kernels):
+    """``arch`` at its published widths in bf16 through phase_serve under
+    MainPath(``kernels``), then its timings.  Returns the phase's record
+    and the launch counts of the main-path run; frees the weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import logical_devices
+    from repro_torch.models.transformer import param_count
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config(arch)
+    free_device_memory()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = wall(lambda: serve_model(cfg))
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    # first-use costs (cuBLAS handles, the allocator) before the count
+    ServeEngine(cfg, params, max_batch=1, max_seq=128).run_requests(
+        [Request(prompt=np.arange(64, dtype=np.int32), max_new_tokens=2)])
+    with MainPath(specs, records, kernels) as mp:
+        res, engine, reqs = phase_serve(cfg, params,
+                                        logical_devices(N_RANKS, "cuda:0"))
+    counts = mp.counts()
+    res.update(serve_timings(engine, reqs))
+    res.update(arch=arch, n_layers=cfg.n_layers,
+               param_count=param_count(params), weights_gb=weights_gb,
+               init_s=init_s, launches=counts, allocated_gb_at_start=start_gb,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return res, counts
+
+
+def free_device_memory():
+    """Drop what an earlier phase left: the scheduler's tasks, closures and
+    threads hold the engines, and so the weights, in reference cycles that
+    only the cycle collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_f32(arch):
+    """``arch``'s widths, 2 layers, float32: the continuous engine (prefill
+    through the kernels, plain decode) against greedy_reference (a full
+    forward through the kernels per token), token for token."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serve import ContinuousEngine, greedy_reference
     from repro_torch.serve_lm import make_requests
-    # full f32 products on both sides of the comparison: TF32 would keep
-    # about three digits and let near-tied logits flip
+    # full f32 products and convolutions on both sides of the comparison:
+    # TF32 would keep about three digits and let near-tied logits flip
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    free_device_memory()
     params = serve_model(cfg)
     reqs = make_requests(cfg, F32_PROMPTS, [F32_NEW] * len(F32_PROMPTS),
                          seed=1)
@@ -688,9 +846,9 @@ def phase_serve_f32():
         if not np.array_equal(out[r.uid], ref):
             raise AssertionError(f"f32 request {r.uid}: {out[r.uid]} != "
                                  f"oracle {ref}")
-    return {"layers": 2, "dtype": "float32", "prompt_lengths": F32_PROMPTS,
-            "max_new_tokens": F32_NEW, "tokens_equal_oracle": True,
-            "tf32": False}
+    return {"arch": arch, "layers": 2, "dtype": "float32",
+            "prompt_lengths": F32_PROMPTS, "max_new_tokens": F32_NEW,
+            "tokens_equal_oracle": True, "tf32": False}
 
 
 def main() -> int:
@@ -714,7 +872,8 @@ def main() -> int:
     gen.manual_seed(0)
     records = phase_kernels(specs, gen)
 
-    radix, attention = ("radix_partition",), ("flash_attention",)
+    radix, attention, scan = ("radix_partition",), ("flash_attention",), \
+        ("ssm_scan",)
     comm = build_communicator(logical_devices(N_RANKS, "cuda:0"))
     rng = np.random.default_rng(0)
     with MainPath(specs, records, radix) as mp:
@@ -731,30 +890,23 @@ def main() -> int:
         res = phase_shuffle(one, rng)
     emit("shuffle", launches=mp.counts(), **res)
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import param_count
-    from repro_torch.serve import Request, ServeEngine
-    cfg = get_config(SERVE_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    params, init_s = wall(lambda: serve_model(cfg))
-    weights_gb = sum(p.numel() * p.element_size()
-                     for p in params.parameters()) / 1e9
-    # first-use costs (cuBLAS handles, the allocator) before the count
-    ServeEngine(cfg, params, max_batch=1, max_seq=128).run_requests(
-        [Request(prompt=np.arange(64, dtype=np.int32), max_new_tokens=2)])
-    with MainPath(specs, records, radix + attention) as mp:
-        res, engine, reqs = phase_serve(cfg, params,
-                                        logical_devices(N_RANKS, "cuda:0"))
-    counts = mp.counts()
-    res.update(serve_timings(engine, reqs))
-    emit("serve", arch=SERVE_ARCH, param_count=param_count(params),
-         weights_gb=weights_gb, init_s=init_s, launches=counts,
-         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
-    del params, engine
-    torch.cuda.empty_cache()
+    res, _ = run_serve(SERVE_ARCH, specs, records, radix + attention)
+    emit("serve", **res)
     with MainPath(specs, records, attention) as mp:
-        res = phase_serve_f32()
+        res = phase_serve_f32(SERVE_ARCH)
     emit("serve_f32", launches=mp.counts(), **res)
+
+    res, counts = run_serve(SSM_ARCH, specs, records, radix + scan)
+    # every prefill runs the scan once per layer, and nothing else does
+    want = res["n_layers"] * res["prefills"]
+    if counts["ssm_scan"] != want:
+        raise AssertionError(f"ssm_scan launched {counts['ssm_scan']} times "
+                             f"for {res['prefills']} prefills of "
+                             f"{res['n_layers']} layers ({want})")
+    emit("serve_ssm", ssm_scan_launches_per_prefill=res["n_layers"], **res)
+    with MainPath(specs, records, scan) as mp:
+        res = phase_serve_f32(SSM_ARCH)
+    emit("serve_ssm_f32", launches=mp.counts(), **res)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -1,0 +1,159 @@
+"""The Mamba1 selective scan: dt, x (B,S,D); A (D,N); Bm, Cm (B,S,N).
+
+``ssm_scan`` wraps the CUDA kernel in ``csrc/ssm_scan.cu``, which replaces
+the Pallas TPU kernel ``src/repro/kernels/ssm_scan/ssm_scan.py::
+ssm_scan_kernel`` (wrapper ``ops.py::ssm_scan``).  It computes
+
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,   y_t = <h_t, C_t>
+
+with h in f32 and y returned in f32; the caller adds D * x and the gate.
+With ``return_state`` it also returns the state after the last step,
+(B, D, N) f32: what the TPU kernel leaves in its VMEM scratch at the end of
+the grid, and what a prefill hands to decode.
+
+Unlike the JAX wrapper, which asserts S % chunk == 0 and D % d_block == 0,
+this one takes any S and any D: the kernel masks the ragged tails.  Each of
+dt, A, Bm, Cm and x may be f32 or bf16 on its own, read as it is (no cast
+pass); Bm and Cm are read through their strides, so column slices of the
+model's ``x_db`` go in as they are.  Every row must be contiguous in its
+last dim.
+
+At the serving shapes, (1, 2048, 8192, 16) and the like, the function is
+bound by its exponentials: one exp per (b, s, d, n), B*S*D*N of them,
+against reading dt and x and writing y once.
+
+A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
+through :func:`ssm_scan_plain`, the same function in plain PyTorch; a
+``meta`` tensor (the serving engines' cache probe) gets ``meta`` results of
+the right shapes and launches nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._nvcc import load_library
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+# The kernel is built with these as -D flags, so the checks below use the
+# kernel's own numbers.
+THREADS = 256               # threads per CTA
+LANES = 4                   # threads per channel; each owns N / LANES states
+MAX_STATE = 16              # largest N (falcon-mamba's ssm_state)
+CHUNK = 32                  # time steps staged in shared memory at a time
+GROUP = 4                   # steps computed together, phase by phase
+MAX_BATCH = 65535           # the grid's y dimension
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
+_entry = None               # the library's entry point, once loaded
+
+
+def load():
+    """Build the kernel at first use and load it; returns the C entry point
+    with its signature set."""
+    global _entry
+    with _load_lock:
+        if _entry is None:
+            lib = load_library("ssm_scan", _SOURCE, defines={
+                "THREADS": THREADS, "LANES": LANES, "MAX_STATE": MAX_STATE,
+                "CHUNK": CHUNK, "GROUP": GROUP})
+            fn = lib.ssm_scan_launch
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _entry = fn
+        return _entry
+
+
+def _check(dt, A, Bm, Cm, x):
+    named = (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("x", x))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"{name} is {t.dtype}; the kernel takes float32 "
+                             f"or bfloat16")
+        if t.dim() != (2 if name == "A" else 3):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; dt and x "
+                             f"are (B,S,D), A (D,N), Bm and Cm (B,S,N)")
+        if t.numel() and t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError("dt, A, Bm, Cm and x lie on different devices")
+    b, s, d = dt.shape
+    n = A.shape[1]
+    if x.shape != dt.shape or A.shape[0] != d or \
+            Bm.shape != (b, s, n) or Cm.shape != (b, s, n):
+        raise ValueError(
+            f"shapes do not match: dt {tuple(dt.shape)}, x {tuple(x.shape)},"
+            f" A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm "
+            f"{tuple(Cm.shape)}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state size {n}; the kernel takes 1..{MAX_STATE}")
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} > {MAX_BATCH}")
+
+
+def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
+    """y (B,S,D) f32, or ``(y, h_last)`` with ``return_state``."""
+    _check(dt, A, Bm, Cm, x)
+    dev = dt.device
+    if dev.type == "cpu":
+        return ssm_scan_plain(dt, A, Bm, Cm, x, return_state=return_state)
+    if dev.type == "meta":
+        return _empty(dt, A, return_state, "meta")
+    if dev.type != "cuda":
+        raise ValueError(f"ssm_scan runs on cuda or cpu, not {dev}")
+    if dt.numel() == 0:
+        y, h = _empty(dt, A, True, dev)
+        y.zero_()
+        h.zero_()
+        return (y, h) if return_state else y
+    return _launch(dt, A, Bm, Cm, x, return_state)
+
+
+ssm_scan.launches = 0     # kernel launches since the last reset
+
+
+def _empty(dt, A, return_state, device):
+    b, s, d = dt.shape
+    y = torch.empty((b, s, d), dtype=torch.float32, device=device)
+    if not return_state:
+        return y
+    return y, torch.empty((b, d, A.shape[1]), dtype=torch.float32,
+                          device=device)
+
+
+def _launch(dt, A, Bm, Cm, x, return_state: bool):
+    fn = load()
+    b, s, d = dt.shape
+    y, h = _empty(dt, A, True, dt.device)
+    strides = (ctypes.c_longlong * 9)(
+        *dt.stride()[:2], *x.stride()[:2], *Bm.stride()[:2],
+        *Cm.stride()[:2], A.stride(0))
+    dtypes = (ctypes.c_int * 5)(*(_DTYPES[t.dtype] for t in (dt, A, Bm, Cm,
+                                                               x)))
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = fn(dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 x.data_ptr(), y.data_ptr(),
+                 h.data_ptr() if return_state else None, strides, dtypes,
+                 b, s, d, A.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        ssm_scan.launches += 1
+    return (y, h) if return_state else y
+
+
+def ssm_scan_plain(dt, A, Bm, Cm, x, *, return_state: bool = False):
+    """The kernel's function in plain PyTorch: ``ref.ssm_scan_ref`` behind
+    the wrapper's checks.  Used for CPU tensors, by the tests, and on the
+    card as the kernel's comparison."""
+    _check(dt, A, Bm, Cm, x)
+    return ssm_scan_ref(dt, A, Bm, Cm, x, return_state=return_state)

@@ -12,6 +12,19 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``cfg.dtype`` ("bfloat16", "float32", ...) as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def frozen(groups: dict) -> nn.ParameterDict:
+    """A parameter group under its JAX names, carrying no gradient (the port
+    serves; training is ROADMAP modules item 9)."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in groups.items()})
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float,

@@ -3,14 +3,14 @@
 Every family exposes ``init(gen, cfg)`` / ``forward`` / ``loss_fn`` /
 ``prefill`` / ``decode_step`` / ``cache_init`` with dict batches, as in the
 JAX package, so the serving engines treat every arch alike.  The port has
-the dense family; the others raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+the dense family and the SSM family (Mamba1); the others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer
 
 
 class ModelApi(NamedTuple):
@@ -22,14 +22,12 @@ class ModelApi(NamedTuple):
     cache_init: Callable
 
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "ssm": ssm_lm}
 
 # where each family not ported yet stands in ROADMAP.md ("Modules still to
 # port")
 _NOT_PORTED = {
     "moe": "item 8 (MoE: models/moe.py)",
-    "ssm": "item 8 (SSM: models/ssm.py, models/ssm_lm.py, with the ssm_scan "
-           "kernel)",
     "hybrid": "item 8 (hybrid: models/hybrid.py)",
     "vlm": "item 8 (VLM: models/vlm.py)",
     "audio": "item 8 (audio: models/encdec.py)",

@@ -22,18 +22,9 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
-                                       embed_init, logits_apply, mlp_apply,
-                                       mlp_init, rms_norm)
-
-
-def torch_dtype(name) -> torch.dtype:
-    """``cfg.dtype`` ("bfloat16", "float32", ...) as a torch dtype."""
-    return name if isinstance(name, torch.dtype) else getattr(torch, name)
-
-
-def _frozen(groups: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in groups.items()})
+                                       embed_init, frozen, logits_apply,
+                                       mlp_apply, mlp_init, rms_norm,
+                                       torch_dtype)
 
 
 class Layer(nn.Module):
@@ -42,8 +33,8 @@ class Layer(nn.Module):
 
     def __init__(self, attn_p: dict, mlp_p: dict):
         super().__init__()
-        self.attn = _frozen(attn_p)
-        self.mlp = _frozen(mlp_p)
+        self.attn = frozen(attn_p)
+        self.mlp = frozen(mlp_p)
 
 
 class Transformer(nn.Module):
@@ -55,7 +46,7 @@ class Transformer(nn.Module):
             raise ValueError(f"{len(layers)} layers for a config of "
                              f"{cfg.n_layers}")
         self.cfg = cfg
-        self.embed = _frozen(embed)
+        self.embed = frozen(embed)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.layers = nn.ModuleList(Layer(a, m) for a, m in layers)
 

@@ -1,4 +1,5 @@
-"""Continuous-batching serving: a slotted KV cache that never drains.
+"""Continuous-batching serving: a slotted cache that never drains (a dense
+model's KV cache, or a Mamba model's conv windows and states).
 
 The static engine (``repro_torch.serve.engine.ServeEngine``) runs prefill +
 decode per prompt-length group: the decode batch starts full, bleeds slots

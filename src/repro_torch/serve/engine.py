@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.transformer import torch_dtype
+from repro_torch.models.layers import torch_dtype
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the dataframe path on logical ranks of ``cuda:0``, and the serving
-engines' tokens against the port's oracle.
+engines' tokens against the port's oracle (dense and SSM families).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -18,6 +18,7 @@ from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
 )
 from repro_torch.kernels.radix_partition.ref import destinations_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -191,4 +192,99 @@ def test_serve_lm_on_the_card(cuda):
     before = fa.flash_attention.launches, radix_partition.launches
     serve_lm.main(["--device", str(cuda)])
     assert fa.flash_attention.launches > before[0]
+    assert radix_partition.launches > before[1]
+
+
+# the sweep of tests/test_kernels.py plus ragged S and D
+SSM_SWEEP = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
+             (1, 77, 100, 16), (2, 300, 40, 5)]
+SSM_MIXES = {"f32": (torch.float32,) * 4,
+             # dt, x, Bm, Cm as the model gives them
+             "model": (torch.float32, torch.bfloat16, torch.bfloat16,
+                       torch.bfloat16),
+             "other": (torch.bfloat16, torch.float32, torch.float32,
+                       torch.bfloat16)}
+
+
+def _ssm_inputs(cuda, b, s, d, n, mix, seed=0):
+    """dt = softplus(normal), A < 0, and Bm, Cm as column slices of one
+    (B, S, 7 + 2N) tensor, as the model's x_db gives them."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    t_dt, t_x, t_b, t_c = SSM_MIXES[mix]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, d, generator=gen, device=cuda)).to(t_dt)
+    A = -torch.exp(0.3 * torch.randn(d, n, generator=gen, device=cuda))
+    x_db = torch.randn(b, s, 7 + 2 * n, generator=gen, device=cuda)
+    _, bm, cm = x_db.split([7, n, n], dim=-1)
+    x = torch.randn(b, s, d, generator=gen, device=cuda).to(t_x)
+    return dt, A, bm.to(t_b), cm.to(t_c), x
+
+
+@pytest.mark.parametrize("b,s,d,n", SSM_SWEEP)
+@pytest.mark.parametrize("mix", sorted(SSM_MIXES))
+def test_ssm_scan_kernel_matches_plain(cuda, b, s, d, n, mix):
+    """y and the final state at the f32 tolerance of tests/test_kernels.py:
+    both sides compute in f32 from the same values, whatever their
+    dtypes."""
+    args = _ssm_inputs(cuda, b, s, d, n, mix, seed=s)
+    before = ssm_ops.ssm_scan.launches
+    y, h = ssm_ops.ssm_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    assert y.shape == (b, s, d) and h.shape == (b, d, n)
+    yp, hp = ssm_ops.ssm_scan_plain(*args, return_state=True)
+    torch.testing.assert_close(y, yp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ssm_ops.ssm_scan(*args), y, atol=0, rtol=0)
+
+
+def test_ssm_scan_kernel_at_the_serving_width(cuda):
+    """(1, 2048, 8192, 16), the longest prefill of falcon-mamba-7b."""
+    args = _ssm_inputs(cuda, 1, 2048, 8192, 16, "model")
+    y, h = ssm_ops.ssm_scan(*args, return_state=True)
+    yp, hp = ssm_ops.ssm_scan_plain(*args, return_state=True)
+    torch.testing.assert_close(y, yp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
+
+
+def test_ssm_scan_kernel_raises_not_falls_back(cuda):
+    dt, A, bm, cm, x = _ssm_inputs(cuda, 1, 8, 16, 4, "f32")
+    with pytest.raises(ValueError):
+        ssm_ops.ssm_scan(dt.half(), A, bm, cm, x)
+    with pytest.raises(ValueError):
+        ssm_ops.ssm_scan(dt, torch.zeros(16, ssm_ops.MAX_STATE + 1,
+                                         device=cuda), bm, cm, x)
+    with pytest.raises(ValueError):
+        ssm_ops.ssm_scan(dt, A, bm.cpu(), cm, x)
+
+
+def test_ssm_f32_token_check_at_reduced_widths(cuda, monkeypatch):
+    """falcon-mamba at reduced widths in f32: prefill through the kernel
+    plus plain decode, in the continuous engine, against a full forward
+    through the kernel per token.  TF32 off: the conv goes through cuDNN."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve_lm import make_requests
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(reduced(get_config("falcon-mamba-7b")),
+                              n_layers=2)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    reqs = make_requests(cfg, [30, 2, 19], [6, 6, 6])
+    before = ssm_ops.ssm_scan.launches
+    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=64).run(reqs)
+    assert ssm_ops.ssm_scan.launches - before == 2 * len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+
+
+def test_serve_lm_serves_falcon_mamba_on_the_card(cuda):
+    from repro_torch import serve_lm
+    before = ssm_ops.ssm_scan.launches, radix_partition.launches
+    serve_lm.main(["--device", str(cuda), "--arch", "falcon-mamba-7b"])
+    assert ssm_ops.ssm_scan.launches > before[0]
     assert radix_partition.launches > before[1]

@@ -1,11 +1,12 @@
-"""The port's kernels against the JAX package's: radix_partition and
-flash_attention.
+"""The port's kernels against the JAX package's: radix_partition,
+flash_attention and ssm_scan.
 
 On the CPU the port's wrappers take their plain PyTorch versions; the JAX
 kernels run in interpret mode, as ``tests/test_kernels.py`` runs them.
 radix_partition's outputs are integers and are compared bit-exact;
-flash_attention's at the tolerances of ``tests/test_kernels.py``.  The
-CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
+flash_attention's and ssm_scan's at the tolerances of
+``tests/test_kernels.py``.  The CUDA kernels themselves run only on the
+card: ``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -21,11 +22,15 @@ from repro.kernels.radix_partition.ops import radix_partition as jax_radix
 from repro.kernels.radix_partition.ref import (
     destinations_ref as jax_destinations_ref,
 )
+from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
+from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ssm_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
 )
 from repro_torch.kernels.radix_partition.ref import destinations_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref as ssm_ref
 
 
 def _buckets(n, n_buckets, seed):
@@ -329,3 +334,186 @@ def test_flash_attention_build_takes_its_constants_from_the_wrapper(
         assert f"-D{name}={getattr(fa, name)}" in cmds[0]
         assert f"#define {name}" not in fa._SOURCE.read_text()
     assert len(fn.argtypes) == 15
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan: the port's plain version (what a CPU tensor runs) against the
+# JAX kernel in interpret mode, the JAX oracle, and the JAX chunked scan's
+# final state
+# ---------------------------------------------------------------------------
+SSM_TOL = dict(atol=1e-5, rtol=1e-5)       # tests/test_kernels.py, f32
+
+
+def _ssm_inputs(b, s, d, n, seed=0, dtypes=("float32",) * 4):
+    """dt (softplus of a normal, as the JAX test draws it), A < 0, Bm, Cm,
+    x as numpy f32; each of dt, Bm, Cm, x rounded to ``dtypes``' entry
+    (float32 or bfloat16) so both packages see the same values."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, d))))
+    A = -np.exp(rng.standard_normal((d, n)) * 0.3)
+    Bm, Cm, x = (rng.standard_normal(shape) for shape in
+                 ((b, s, n), (b, s, n), (b, s, d)))
+    out = {"A": torch.from_numpy(A.astype(np.float32))}
+    for name, arr, dtype in zip(("dt", "Bm", "Cm", "x"), (dt, Bm, Cm, x),
+                                dtypes, strict=True):
+        out[name] = torch.from_numpy(arr.astype(np.float32)).to(
+            getattr(torch, dtype))
+    return out
+
+
+def _ssm_args(t):
+    return t["dt"], t["A"], t["Bm"], t["Cm"], t["x"]
+
+
+def _jax_ssm(t):
+    return [jnp.asarray(a.float().numpy()) for a in _ssm_args(t)]
+
+
+@pytest.mark.parametrize("b,s,d,n,dblk,chunk", [
+    (1, 64, 32, 8, 16, 16), (2, 128, 64, 16, 32, 64), (1, 96, 48, 4, 48, 32)])
+def test_ssm_scan_sweep_matches_jax(b, s, d, n, dblk, chunk):
+    """The JAX sweep shapes, f32, at its tolerance.  The JAX kernel runs in
+    interpret mode on the case tests/test_kernels.py runs in tier-1; every
+    case is held to the JAX oracle."""
+    t = _ssm_inputs(b, s, d, n, seed=s)
+    got = ssm_ops.ssm_scan(*_ssm_args(t))
+    assert got.dtype == torch.float32 and got.shape == (b, s, d)
+    jargs = _jax_ssm(t)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax.jit(jax_ssm_ref)(*jargs)), **SSM_TOL)
+    if s <= 64:
+        kern = jax_ssm_scan(*jargs, d_block=dblk, chunk=chunk, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(kern), **SSM_TOL)
+
+
+@pytest.mark.parametrize("b,s,d,n", [(1, 77, 100, 16), (2, 300, 40, 5),
+                                     (1, 1, 3, 1)])
+@pytest.mark.parametrize("dtypes", [
+    ("float32",) * 4,
+    ("float32", "bfloat16", "bfloat16", "bfloat16"),   # the model's mix
+    ("bfloat16", "float32", "bfloat16", "float32"),
+])
+def test_ssm_scan_ragged_and_mixed_dtypes_match_jax(b, s, d, n, dtypes):
+    """S and D that are no chunk or block multiple, and each input in its
+    own dtype: both sides compute in f32 from the same values."""
+    t = _ssm_inputs(b, s, d, n, seed=d, dtypes=dtypes)
+    got, h = ssm_ops.ssm_scan(*_ssm_args(t), return_state=True)
+    jargs = _jax_ssm(t)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax.jit(jax_ssm_ref)(*jargs)), **SSM_TOL)
+    assert h.dtype == torch.float32 and h.shape == (b, d, n)
+
+
+@pytest.mark.parametrize("b,s,d,n,chunk", [(2, 40, 24, 8, 8), (1, 77, 16, 16,
+                                                               32)])
+def test_ssm_scan_final_state_matches_jax_chunked_scan(b, s, d, n, chunk):
+    """The state after the last step equals the h_final of the JAX
+    package's chunked associative scan (what the JAX prefill hands to
+    decode) over the materialised decay and input."""
+    from repro.models.ssm import _assoc_scan_chunked
+    t = _ssm_inputs(b, s, d, n, seed=5)
+    _, h = ssm_ops.ssm_scan(*_ssm_args(t), return_state=True)
+    dt, A, Bm, _, x = _jax_ssm(t)
+    a = jnp.exp(dt[..., None] * A)
+    bb = (dt * x)[..., None] * Bm[:, :, None, :]
+    _, h_final = jax.jit(_assoc_scan_chunked, static_argnums=3)(
+        a, bb, jnp.zeros((b, d, n), jnp.float32), chunk)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_final), **SSM_TOL)
+
+
+def test_ssm_torch_ref_matches_jax_ref():
+    t = _ssm_inputs(2, 33, 20, 6, seed=9)
+    np.testing.assert_allclose(
+        ssm_ref(*_ssm_args(t)).numpy(),
+        np.asarray(jax.jit(jax_ssm_ref)(*_jax_ssm(t))), **SSM_TOL)
+
+
+def test_ssm_scan_cpu_path_is_the_plain_version():
+    t = _ssm_inputs(1, 20, 12, 4, seed=2)
+    before = ssm_ops.ssm_scan.launches
+    y, h = ssm_ops.ssm_scan(*_ssm_args(t), return_state=True)
+    yp, hp = ssm_ops.ssm_scan_plain(*_ssm_args(t), return_state=True)
+    assert torch.equal(y, yp) and torch.equal(h, hp)
+    assert torch.equal(ssm_ops.ssm_scan(*_ssm_args(t)), yp)
+    assert ssm_ops.ssm_scan.launches == before       # no kernel on the CPU
+
+
+def test_ssm_scan_reads_strided_column_slices():
+    """Bm and Cm as column slices of one (B,S,E) tensor, as the model's
+    x_db gives them."""
+    t = _ssm_inputs(2, 30, 16, 8, seed=4)
+    x_db = torch.cat([torch.zeros(2, 30, 5), t["Bm"], t["Cm"]], dim=-1)
+    _, bm, cm = x_db.split([5, 8, 8], dim=-1)
+    assert not bm.is_contiguous()
+    args = (t["dt"], t["A"], bm, cm, t["x"])
+    assert torch.equal(ssm_ops.ssm_scan(*args),
+                       ssm_ops.ssm_scan(*_ssm_args(t)))
+
+
+def test_ssm_scan_meta_in_meta_out_without_a_launch():
+    """The serving engines probe prefill on the meta device: the wrapper
+    returns meta results of the right shapes and launches nothing."""
+    t = {k: v.to("meta") for k, v in _ssm_inputs(2, 5, 12, 8).items()}
+    before = ssm_ops.ssm_scan.launches
+    y, h = ssm_ops.ssm_scan(*_ssm_args(t), return_state=True)
+    assert y.device.type == h.device.type == "meta"
+    assert y.shape == (2, 5, 12) and h.shape == (2, 12, 8)
+    assert y.dtype == h.dtype == torch.float32
+    assert ssm_ops.ssm_scan(*_ssm_args(t)).shape == (2, 5, 12)
+    assert ssm_ops.ssm_scan.launches == before
+
+
+def _bad_ssm(name, value):
+    t = _ssm_inputs(1, 8, 6, 4)
+    t[name] = value(t[name])
+    return _ssm_args(t)
+
+
+@pytest.mark.parametrize("args,err", [
+    (_bad_ssm("dt", lambda a: a.half()), ValueError),            # dtype
+    (_bad_ssm("x", lambda a: a[0]), ValueError),                 # 2-D x
+    (_bad_ssm("A", lambda a: a[None]), ValueError),              # 3-D A
+    (_bad_ssm("Bm", lambda a: a[:, :4]), ValueError),            # S differs
+    (_bad_ssm("A", lambda a: torch.zeros(6, ssm_ops.MAX_STATE + 1)),
+     ValueError),                                                # N too big
+    (_bad_ssm("x", lambda a: torch.zeros(1, 6, 8).transpose(1, 2)),
+     ValueError),                                                # strided
+    (_bad_ssm("Cm", lambda a: a.to("meta")), ValueError),        # devices
+    (_bad_ssm("dt", lambda a: a.numpy()), TypeError),
+])
+def test_ssm_scan_rejects_what_the_kernel_does_not_take(args, err):
+    with pytest.raises(err):
+        ssm_ops.ssm_scan(*args)
+    with pytest.raises(err):
+        ssm_ops.ssm_scan_plain(*args)
+
+
+def test_ssm_scan_build_takes_its_constants_from_the_wrapper(monkeypatch,
+                                                             tmp_path):
+    """nvcc gets the block shape, the largest state size, the chunk and the
+    step group from ops.py as -D flags (the source defines none of them), and the entry
+    point's signature is set once."""
+    import subprocess
+    import types
+    from repro_torch.kernels import _nvcc
+    cmds = []
+
+    def fake_nvcc(cmd, **_):
+        cmds.append(cmd)
+        (tmp_path / cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_nvcc, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_nvcc.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(_nvcc.ctypes, "CDLL", lambda _: types.SimpleNamespace(
+        ssm_scan_launch=types.SimpleNamespace()))
+    monkeypatch.setattr(_nvcc, "_loaded", {})
+    monkeypatch.setattr(_nvcc, "build_log", {})
+    monkeypatch.setattr(ssm_ops, "_entry", None)
+    fn = ssm_ops.load()
+    assert ssm_ops.load() is fn and len(cmds) == 1
+    for name in ("THREADS", "LANES", "MAX_STATE", "CHUNK", "GROUP"):
+        assert f"-D{name}={getattr(ssm_ops, name)}" in cmds[0]
+        assert f"#define {name}" not in ssm_ops._SOURCE.read_text()
+    assert len(fn.argtypes) == 14

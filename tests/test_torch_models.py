@@ -1,4 +1,4 @@
-"""The port's dense LM against the JAX package's, on the CPU.
+"""The port's dense LM and SSM LM against the JAX package's, on the CPU.
 
 Inputs are drawn with numpy from a seed and fed to both packages; model
 parameters are the JAX ``init`` params carried across by
@@ -20,6 +20,7 @@ from repro.configs import get_config, list_archs, reduced
 from repro.models import attention as JA
 from repro.models import get_model as jax_get_model
 from repro.models import layers as JL
+from repro.models import ssm as JS
 from repro.serve.continuous import cache_batch_axes as jax_cache_batch_axes
 
 from repro_torch.configs import get_config as t_get_config
@@ -27,6 +28,7 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.models import attention as TA
 from repro_torch.models import get_model
 from repro_torch.models import layers as TL
+from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.continuous import cache_batch_axes
@@ -61,8 +63,8 @@ def _configs(arch, n_layers=2):
     return jcfg, tcfg
 
 
-def _models(arch, seed=0):
-    jcfg, tcfg = _configs(arch)
+def _models(arch, seed=0, n_layers=2):
+    jcfg, tcfg = _configs(arch, n_layers)
     params = jax_get_model(jcfg).init(jax.random.key(seed), jcfg)
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
     return jcfg, tcfg, params, model
@@ -327,10 +329,206 @@ def test_init_draws_the_jax_shapes_from_a_generator():
     assert not any(p.requires_grad for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", [a for a in list_archs() if a not in DENSE])
+@pytest.mark.parametrize("arch", [a for a in list_archs() if get_config(a)
+                                  .family not in ("dense", "ssm")])
 def test_registry_raises_for_families_not_ported(arch):
     cfg = t_reduced(t_get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
         get_model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init(torch.Generator(), cfg)
+
+
+# ---------------------------------------------------------------------------
+# the SSM family: Mamba1 blocks and the falcon-mamba LM at the reduced
+# widths (d_model 64, d_inner 128, N 8, 4 layers, f32)
+# ---------------------------------------------------------------------------
+SSM = "falcon-mamba-7b"
+
+
+def _t(tree):
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _mamba_params(seed=0):
+    """JAX ``mamba1_init`` params, with the leaves it sets to constants
+    (conv_b, dt_bias, A_log, D) drawn at random so they are tested too."""
+    jcfg, tcfg = _configs(SSM, 4)
+    p = dict(JS.mamba1_init(jax.random.key(seed), jcfg, jnp.float32))
+    rng = np.random.default_rng(seed)
+    di, st = jcfg.d_inner, jcfg.ssm_state
+    p["conv_b"] = jnp.asarray(_randn(rng, di) * 0.1)
+    p["dt_bias"] = jnp.asarray(_randn(rng, di) * 0.5 - 2.0)
+    p["A_log"] = p["A_log"] + jnp.asarray(_randn(rng, di, st) * 0.1)
+    p["D"] = jnp.asarray(_randn(rng, di))
+    return jcfg, tcfg, p, _t(p)
+
+
+def test_causal_conv_and_conv_step_match_jax():
+    rng = np.random.default_rng(10)
+    x, w, b = _randn(rng, 2, 9, 6), _randn(rng, 4, 6), _randn(rng, 6)
+    tx, tw, tb = map(torch.from_numpy, (x, w, b))
+    _close(TS._causal_conv(tx, tw, tb),
+           JS._causal_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    state = np.zeros((2, 3, 6), np.float32)
+    jstate, tstate = jnp.asarray(state), torch.from_numpy(state)
+    for t in range(9):
+        jy, jstate = JS._conv_step(jstate, jnp.asarray(x[:, t]),
+                                   jnp.asarray(w), jnp.asarray(b))
+        ty, tstate = TS._conv_step(tstate, tx[:, t], tw, tb)
+        _close(ty, jy)
+        _close(tstate, jstate)
+
+
+def test_mamba1_ssm_inputs_match_jax():
+    """The port hands dt, A, Bm, Cm to the scan; the decay and input the
+    JAX twin materialises follow from them."""
+    jcfg, tcfg, jp, tp = _mamba_params(1)
+    x_conv = _randn(np.random.default_rng(11), 2, 7, jcfg.d_inner)
+    ja, jb, jc = JS._mamba1_ssm_inputs(jp, jnp.asarray(x_conv), jcfg)
+    dt, A, Bm, Cm = TS._mamba1_ssm_inputs(tp, torch.from_numpy(x_conv), tcfg)
+    assert dt.dtype == A.dtype == torch.float32
+    _close(torch.exp(dt[..., None] * A), ja)
+    _close((dt * torch.from_numpy(x_conv))[..., None] * Bm[:, :, None, :], jb)
+    _close(Cm, jc)
+
+
+def test_mamba1_apply_and_decode_match_jax():
+    """mamba1_apply, its final state, and mamba1_decode token by token
+    (writing its state in place) against the JAX package's."""
+    jcfg, tcfg, jp, tp = _mamba_params(2)
+    b, s = 2, 10
+    x = _randn(np.random.default_rng(12), b, s, jcfg.d_model) * 0.3
+    y, st = TS.mamba1_apply(tp, torch.from_numpy(x), tcfg, return_state=True)
+    _close(y, _jit(JS.mamba1_apply, 2)(jp, jnp.asarray(x), jcfg))
+    _close(TS.mamba1_apply(tp, torch.from_numpy(x), tcfg), y.numpy())
+    jstate = JS.mamba1_state_init(b, jcfg, jnp.float32)
+    tstate = TS.mamba1_state_init(b, tcfg, torch.float32)
+    held = {k: v for k, v in tstate.items()}
+    jdecode = _jit(JS.mamba1_decode, 3)
+    for t in range(s):
+        jy, jstate = jdecode(jp, jnp.asarray(x[:, t:t + 1]), jstate, jcfg)
+        ty, tstate = TS.mamba1_decode(tp, torch.from_numpy(x[:, t:t + 1]),
+                                      tstate, tcfg)
+        _close(ty, jy)
+        for k in ("conv", "h"):
+            assert tstate[k] is held[k]                  # written in place
+            _close(tstate[k], jstate[k])
+    _close(st["conv"], jstate["conv"])
+    _close(st["h"], jstate["h"])
+
+
+def test_reference_scan_matches_jax():
+    rng = np.random.default_rng(13)
+    a = 1 / (1 + np.exp(-_randn(rng, 2, 12, 5, 3)))
+    b, h0 = _randn(rng, 2, 12, 5, 3), _randn(rng, 2, 5, 3)
+    _close(TS.reference_scan(*map(torch.from_numpy, (a, b, h0))),
+           JS.reference_scan(*map(jnp.asarray, (a, b, h0))))
+
+
+def test_ssm_lm_forward_and_loss_match_jax():
+    jcfg, tcfg, params, model = _models(SSM, n_layers=4)
+    japi, api = jax_get_model(jcfg), get_model(tcfg)
+    toks, labels = _batch(jcfg, 2, 9, 1), _batch(jcfg, 2, 9, 2)
+    with torch.inference_mode():
+        logits = api.forward(model, tcfg, {"tokens": torch.from_numpy(toks)})
+        loss = api.loss_fn(model, tcfg, {"tokens": torch.from_numpy(toks),
+                                         "labels": torch.from_numpy(labels)})
+    _close(logits, _jit(japi.forward, 1)(params, jcfg,
+                                         {"tokens": jnp.asarray(toks)}))
+    _close(loss, _jit(japi.loss_fn, 1)(params, jcfg, {
+        "tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}))
+
+
+@pytest.mark.parametrize("plen", [2, 6])     # 2 < K - 1: the left pad
+def test_ssm_lm_prefill_and_decode_match_jax(plen):
+    jcfg, tcfg, params, model = _models(SSM, n_layers=4)
+    japi, api = jax_get_model(jcfg), get_model(tcfg)
+    toks = _batch(jcfg, 2, plen + 3, 3)
+    jc, jl = _jit(japi.prefill, 1, 3)(
+        params, jcfg, {"tokens": jnp.asarray(toks[:, :plen])}, 16)
+    with torch.inference_mode():
+        tc, tl = api.prefill(model, tcfg,
+                             {"tokens": torch.from_numpy(toks[:, :plen])}, 16)
+    _close(tl, jl)
+    for name in ("conv", "h"):
+        assert tuple(tc[name].shape) == jc[name].shape
+        _close(tc[name], jc[name])
+    jdecode = _jit(japi.decode_step, 1)
+    held = dict(tc)
+    for t in range(plen, plen + 3):
+        jl, jc = jdecode(params, jcfg, {
+            "tokens": jnp.asarray(toks[:, t:t + 1]),
+            "positions": jnp.full((2,), t, jnp.int32)}, jc)
+        with torch.inference_mode():
+            tl, tc = api.decode_step(model, tcfg, {
+                "tokens": torch.from_numpy(toks[:, t:t + 1]),
+                "positions": torch.full((2,), t)}, tc)
+        _close(tl, jl)
+        for name in ("conv", "h"):
+            assert tc[name] is held[name]                # written in place
+            _close(tc[name], jc[name])
+
+
+def test_ssm_cache_batch_axes_and_cache_init_match_jax():
+    jcfg, tcfg, params, model = _models(SSM, n_layers=4)
+    axes, spec = cache_batch_axes(tcfg, model, 24)
+    jaxes, jspec = jax_cache_batch_axes(jcfg, params, 24)
+    assert axes == dict(jaxes) == {"conv": 1, "h": 1}
+    jcache = jax_get_model(jcfg).cache_init(jcfg, 3, 24)
+    cache = get_model(tcfg).cache_init(tcfg, 3, 24)
+    for name in ("conv", "h"):
+        assert tuple(spec[name].shape) == jspec[name].shape
+        assert spec[name].device.type == "meta"
+        assert tuple(cache[name].shape) == jcache[name].shape
+        assert str(cache[name].dtype).removeprefix("torch.") == \
+            str(jcache[name].dtype)
+    # a Mamba cache does not grow with the sequence budget
+    assert {k: v.shape for k, v in get_model(tcfg).cache_init(
+        tcfg, 3, 4096).items()} == {k: v.shape for k, v in cache.items()}
+
+
+def test_ssm_init_draws_the_jax_shapes_from_a_generator():
+    jcfg, tcfg = _configs(SSM, 4)
+    jparams = jax_get_model(jcfg).init(jax.random.key(0), jcfg)
+    ref = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    model = get_model(tcfg).init(torch.Generator().manual_seed(7), tcfg)
+    shapes = {n: (tuple(p.shape), p.dtype)
+              for n, p in model.named_parameters()}
+    assert shapes == {n: (tuple(p.shape), p.dtype)
+                      for n, p in ref.named_parameters()}
+    assert TT.param_count(model) == tcfg.param_count() == \
+        jcfg.param_count()
+    again = get_model(tcfg).init(torch.Generator().manual_seed(7), tcfg)
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 again.parameters()))
+    assert not any(p.requires_grad for p in model.parameters())
+    bf16 = dataclasses.replace(tcfg, dtype="bfloat16")
+    layer = get_model(bf16).init(torch.Generator().manual_seed(7),
+                                 bf16).layers[0]
+    assert layer["A_log"].dtype == layer["D"].dtype == torch.float32
+    assert layer["in_proj"].dtype == layer["dt_bias"].dtype == torch.bfloat16
+
+
+def test_params_from_jax_bf16_keeps_A_log_and_D_f32():
+    jcfg, tcfg = _configs(SSM, 2)
+    tree = jax.tree.map(np.asarray,
+                        jax_get_model(jcfg).init(jax.random.key(1), jcfg))
+    model = params_from_jax(tree, tcfg, "cpu", dtype="bfloat16")
+    for layer in model.layers:
+        assert layer["A_log"].dtype == layer["D"].dtype == torch.float32
+        assert layer["dt_bias"].dtype == layer["x_proj"].dtype == \
+            torch.bfloat16
+    np.testing.assert_array_equal(model.layers[1]["A_log"].numpy(),
+                                  tree["layers"]["A_log"][1])
+    assert model.embed["embedding"].dtype == torch.bfloat16
+
+
+def test_ssm_scan_dtype_other_than_float32_raises():
+    _, tcfg = _configs(SSM, 2)
+    cfg = dataclasses.replace(tcfg, ssm_scan_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP kernel item 4"):
+        get_model(cfg).init(torch.Generator(), cfg)
+    _, _, _, tp = _mamba_params(3)
+    with pytest.raises(NotImplementedError, match="ROADMAP kernel item 4"):
+        TS.mamba1_apply(tp, torch.zeros(1, 3, cfg.d_model), cfg)

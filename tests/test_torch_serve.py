@@ -5,13 +5,15 @@ across by ``params_from_jax``).  Every generated stream must equal, token
 for token, the port's ``greedy_reference`` AND the JAX package's: the
 static engine over length groups, the continuous engine under staggered
 admission, mixed budgets and eviction, and ``ServeDriver`` running prefill
-and decode as scheduler tasks beside ETL tasks.
+and decode as scheduler tasks beside ETL tasks.  The dense family and the
+SSM family (falcon-mamba-7b) both run the engines.
 """
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config, list_archs, reduced
 from repro.models import get_model as jax_get_model
@@ -27,6 +29,7 @@ from repro_torch.serve import (AutoscaleConfig, ContinuousEngine, Request,
                                greedy_reference)
 
 DENSE = [a for a in list_archs() if get_config(a).family == "dense"]
+SSM = "falcon-mamba-7b"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,7 +83,7 @@ def _check_oracles(jax_side, port_side, reqs, out):
         np.testing.assert_array_equal(out[r.uid], ref)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [SSM])
 def test_batched_generation_matches_oracle(arch):
     jax_side, (cfg, model) = _make(arch)
     eng = ServeEngine(cfg, model, max_batch=4, max_seq=32)
@@ -103,7 +106,7 @@ def test_mixed_lengths_grouped():
     _check_oracles(jax_side, (cfg, model), reqs, out)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", SSM])
 def test_staggered_admission_matches_oracle(arch):
     """max_batch=2 over 5 mixed-length / mixed-budget requests: requests
     are admitted mid-decode into slots whose neighbour is at a different
@@ -154,6 +157,32 @@ def test_admission_never_aliases_the_slot_cache():
         assert (free.narrow(ax + 1, 1, free.shape[ax + 1] - 1) == 0).all()
         assert (eng.cache[n].narrow(ax, slot, 1).narrow(ax + 1, 0, 5)
                 != 0).any(dim=-1).all()
+
+
+def test_ssm_free_slot_decodes_only_its_own_row():
+    """A Mamba cache row holds a whole sequence's state: a free slot's dummy
+    decode changes only that slot's row, the live slot's row evolves as
+    the same request decoded alone (within f32 rounding: a product over two
+    rows need not round as one over one row), and the next admission's
+    copy overwrites the dummy state wholesale."""
+    _, (cfg, model) = _make(SSM)
+    eng = ContinuousEngine(cfg, model, max_batch=2, max_seq=16)
+    r1, r2 = _reqs(cfg, [(4, 5), (3, 4)])
+    adm = eng.prefill_request(r1)
+    alone = {n: t.clone() for n, t in adm.cache.items()}
+    slot = eng.insert(adm)
+    eng.decode_round()
+    eng.api.decode_step(model, cfg, {
+        "tokens": torch.tensor([[adm.first_tok]])}, alone)
+    for n, ax in eng._axes.items():
+        torch.testing.assert_close(eng.cache[n].narrow(ax, slot, 1), alone[n],
+                                   rtol=1e-5, atol=1e-5)
+        assert (eng.cache[n].narrow(ax, 1 - slot, 1) != 0).any()
+    adm2 = eng.prefill_request(r2)
+    assert eng.insert(adm2) == 1 - slot
+    for n, ax in eng._axes.items():
+        assert torch.equal(eng.cache[n].narrow(ax, 1 - slot, 1),
+                           adm2.cache[n])
 
 
 def test_sequence_budget_eviction():
@@ -240,3 +269,13 @@ def test_serve_lm_runs_both_acts_on_the_cpu(capsys):
     assert "[runtime] served 6 requests" in text
     assert "[continuous] 6 requests through pipelines ['etl', " \
            "'serve-decode', 'serve-prefill']" in text
+
+
+def test_serve_lm_serves_falcon_mamba_on_the_cpu(capsys):
+    """``python -m repro_torch.serve_lm --device cpu --arch falcon-mamba-7b``:
+    the SSM family through both acts at reduced widths."""
+    from repro_torch import serve_lm
+    serve_lm.main(["--device", "cpu", "--arch", SSM])
+    text = capsys.readouterr().out
+    assert "[runtime] served 6 requests" in text
+    assert "== oracle" in text and "[continuous] 6 requests" in text
