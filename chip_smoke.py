@@ -13,9 +13,10 @@ Phases, one JSON line each:
             bit-exact; flash_attention within 2e-5 in f32 and 2e-2 in bf16,
             and a bf16 result also within 4e-3 + 2e-2 * |plain| of the
             plain version run in f32; ssm_scan's y and final state within
-            1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes),
-            and its time beside its bound, the plain version's and one
-            PyTorch call computing the same function, where there is one
+            1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes;
+            bitonic_sort's keys and payloads bit-identical), and its time
+            beside its bound, the plain version's and one PyTorch call
+            computing the same function, where there is one
   dist      dist sort, join and groupby-sum at 35 million rows on 4 logical
             ranks of cuda:0, checked against numpy
   pipeline  the ETL pipelines (python -m repro_torch.etl) under the
@@ -37,8 +38,14 @@ Phases, one JSON line each:
   serve_ssm_f32  falcon-mamba-7b's widths with 2 layers in float32 (TF32
             off for matmuls and cuDNN): the continuous engine's tokens equal
             the full-forward oracle's
+  sort      bitonic_sort's own path, the row sorts of the JAX package's
+            benchmark (4 rows of 2^18 int32 keys in [0, 2^30),
+            benchmarks/bench_kernels.py) and of its test sweep, through the
+            wrapper: keys equal the stable oracle's (its ref.sort_ref),
+            payloads regather them
 
-The main-path phases (dist, pipeline, shuffle and the four serve phases)
+The main-path phases (dist, pipeline, shuffle, the four serve phases and
+sort)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (serve_ssm: exactly once per
 layer per prefill).  Then come the kernel summary line, the card's name
@@ -418,8 +425,122 @@ def _ssm_spec():
     }
 
 
+SORT_ROWS, SORT_N = 4, 1 << 18     # benchmarks/bench_kernels.py:51-58
+# the JAX test sweep (tests/test_kernels.py), run by the sort phase
+SORT_TEST_SHAPES = ((1, 64), (4, 100), (2, 256), (3, 17))
+I32 = torch.int32
+
+
+def _sort_keys(shape, gen):
+    """Keys of ``shape`` = (rows, n, dtype, kind): "bench" uniform in [0,
+    2^30) as benchmarks/bench_kernels.py draws them, "random" normal (f32)
+    or uniform in [-500, 500) (int32) as tests/test_kernels.py does, "ties"
+    from 5 values, "signed_zeros" -0.0 and +0.0 among ties, "max" the
+    dtype's largest value (the pad's) in a quarter of the places."""
+    rows, n, dtype, kind = shape
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (rows, n), generator=gen,
+                             device="cuda").to(dtype)
+    if kind == "bench":
+        return ints(0, 1 << 30)
+    if kind == "ties":
+        return ints(-2, 3)
+    if kind == "signed_zeros":
+        return ints(0, 3) * torch.where(ints(0, 2) > 0, -1.0, 1.0).to(dtype)
+    keys = (torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
+            if dtype == F32 else ints(-500, 500))
+    if kind == "max":
+        info = torch.finfo if dtype == F32 else torch.iinfo
+        keys = torch.where(ints(0, 4) == 0, info(dtype).max, keys)
+    return keys
+
+
+def _check_sorted(keys, ks, ps):
+    """Keys equal the stable oracle's; each payload entry regathers its key,
+    except where the pad tied with a key of the dtype's largest value and
+    was kept (payload -1: the key there is that value)."""
+    from repro_torch.kernels.bitonic_sort.ref import sort_ref
+    kr, _ = sort_ref(keys, ps)
+    pad = ps < 0
+    got = torch.take_along_dim(keys, ps.clamp(min=0).long(), -1)
+    info = torch.finfo if keys.is_floating_point() else torch.iinfo
+    return bool(torch.equal(ks, kr) and torch.equal(got[~pad], ks[~pad])
+                and bool((ks[pad] == info(keys.dtype).max).all()))
+
+
+def _sort_library(keys):
+    """torch.sort and its indices as the payload (a yardstick only)."""
+    ks, order = torch.sort(keys, dim=-1)
+    return ks, order.to(torch.int32)
+
+
+def _bitonic_spec():
+    from repro_torch.kernels.bitonic_sort import ops as bs
+
+    def compare(out, ref, args, yardstick=False):
+        """Kernel against plain: keys (as bits) and payloads equal.  Both,
+        and the library yardstick, against the oracle (_check_sorted)."""
+        (ks, ps), (kp, pp) = out, ref
+        ok = _check_sorted(args[0], ks, ps)
+        if not yardstick:
+            bits = (lambda t: t.view(I32)) if ks.dtype == F32 else (
+                lambda t: t)
+            ok = ok and torch.equal(bits(ks), bits(kp)) and torch.equal(ps,
+                                                                        pp)
+        err = float((ks.double() - kp.double()).abs().max()) if ks.numel() \
+            else 0.0
+        return err, ok, {}
+
+    def bound(shape):
+        """Bytes: keys and payloads read and written once.  Operations: a
+        compare and two selects per compare-exchange of the padded rows'
+        network, at the CUDA cores' 67 T a second."""
+        rows, n, _, _ = shape
+        m = 1 << max(n - 1, 0).bit_length()
+        stages = m.bit_length() * (m.bit_length() - 1) // 2
+        nbytes = rows * n * (4 + 4) * 2
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = 3 * rows * (m // 2) * stages / H100_F32_FLOPS * 1e3
+        return max(by_ops, by_bytes), \
+            "operations" if by_ops >= by_bytes else "bytes"
+
+    def describe(shape):
+        rows, n, dtype, kind = shape
+        return {"rows": rows, "n": n,
+                "dtype": str(dtype).removeprefix("torch."), "keys": kind}
+
+    c = bs.CHUNK
+    return {
+        "name": "bitonic_sort",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/bitonic_sort/csrc/bitonic_sort.cu",
+        "replaces": "src/repro/kernels/bitonic_sort/bitonic_sort.py:50",
+        "build": bs.load,
+        "wrapper": bs.bitonic_sort,
+        "plain": bs.bitonic_sort_plain,
+        "library": _sort_library,
+        "inputs": lambda shape, gen: (_sort_keys(shape, gen),),
+        "compare": compare, "bound": bound,
+        "tolerance": "bit-exact against the plain version (keys as bits, "
+                     "payloads); keys equal the stable oracle's",
+        "describe": describe,
+        # the benchmark's rows, which the sort phase sorts (timed), then
+        # the same rows of float32 keys
+        "main_shapes": ((SORT_ROWS, SORT_N, I32, "bench"),
+                        (SORT_ROWS, SORT_N, F32, "random")),
+        "sweep": (
+            *((r, n, dt, "random") for r, n in (
+                *SORT_TEST_SHAPES, (1, c - 1), (1, c), (2, c + 1),
+                (1, 1 << 20), (64, 1000)) for dt in (I32, F32)),
+            *((4, 5000, dt, kind) for dt in (I32, F32)
+              for kind in ("ties", "max")),
+            (2, 3000, F32, "signed_zeros")),
+    }
+
+
 def kernel_specs():
-    return [_radix_spec(), _attention_spec(), _ssm_spec()]
+    return [_radix_spec(), _attention_spec(), _ssm_spec(), _bitonic_spec()]
 
 
 def phase_build(specs):
@@ -851,6 +972,26 @@ def phase_serve_f32(arch):
             "tokens_equal_oracle": True, "tf32": False}
 
 
+def phase_sort(gen):
+    """bitonic_sort's path in the JAX package: the benchmark's row sort and
+    the test sweep's rows, through the wrapper, each held to the oracle."""
+    from repro_torch.kernels.bitonic_sort.ops import bitonic_sort
+    shapes = [(SORT_ROWS, SORT_N, I32, "bench")] + [
+        (r, n, dt, "random") for r, n in SORT_TEST_SHAPES
+        for dt in (I32, F32)]
+    rows = []
+    for shape in shapes:
+        keys = _sort_keys(shape, gen)
+        (ks, ps), s = wall(lambda: bitonic_sort(keys))
+        if not _check_sorted(keys, ks, ps):
+            raise AssertionError(f"bitonic_sort disagrees with the oracle "
+                                 f"at {shape[:3]}")
+        rows.append({"rows": shape[0], "n": shape[1],
+                     "dtype": str(shape[2]).removeprefix("torch."),
+                     "wall_s": s})
+    return {"sorts": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -874,6 +1015,9 @@ def main() -> int:
 
     radix, attention, scan = ("radix_partition",), ("flash_attention",), \
         ("ssm_scan",)
+    with MainPath(specs, records, ("bitonic_sort",)) as mp:
+        res = phase_sort(gen)
+    emit("sort", launches=mp.counts(), **res)
     comm = build_communicator(logical_devices(N_RANKS, "cuda:0"))
     rng = np.random.default_rng(0)
     with MainPath(specs, records, radix) as mp:

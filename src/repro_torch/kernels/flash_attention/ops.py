@@ -6,11 +6,12 @@ which replaces the Pallas TPU kernel
 (wrapper ``ops.py::flash_attention``).  At the serving shapes the function
 is bound by arithmetic: 4 * hd FLOPs per unmasked (row, col) pair per head
 (two products) against reading q, k, v and writing o once.  bf16 inputs
-run the products on the tensor cores (``mma.sync``, f32 accumulators);
-f32 inputs run them in f32 on the CUDA cores, which keeps the result within
-2e-5 of the plain version.  The kernel reads the model layout through its
-strides, so the wrapper neither transposes nor pads: the ragged Sq / Sk
-tail is masked inside the kernel.
+run the products on the tensor cores (``wgmma``, f32 accumulators), fed
+by TMA copies into a ring of ``KV_STAGES`` kv tiles; f32 inputs run them
+in f32 on the CUDA cores, which keeps the result within 2e-5 of the plain
+version.  The kernel reads the model layout through its strides (TMA
+tensor maps in bf16), so the wrapper neither transposes nor pads: the
+ragged Sq / Sk tail is masked inside the kernel.
 
 The causal mask is the TPU kernel's, ``cols <= rows``, top-left aligned.
 The oracle (``ref.attention_ref``) aligns the suffixes (offset Sk - Sq);
@@ -32,10 +33,16 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # The kernel is built with these as -D flags, so the checks below use the
 # kernel's own numbers.
-BLOCK_Q = 64                # query rows per CTA (16 per warp in bf16)
-BLOCK_K = 64                # key rows per shared-memory tile
+BLOCK_Q = 64                # f32: query rows per CTA
+BLOCK_K = 64                # f32: key rows per shared-memory tile
+WG_BLOCK_Q = 128            # bf16: query rows per CTA (64 per warpgroup)
+WG_BLOCK_K = 128            # bf16: key rows per TMA tile
+KV_STAGES = 2               # bf16: kv tiles in flight in shared memory
 MAX_HEAD_DIM = 128
 HEAD_DIMS = tuple(d for d in (16, 32, 64, 128) if d <= MAX_HEAD_DIM)
+DEFINES = {"BLOCK_Q": BLOCK_Q, "BLOCK_K": BLOCK_K, "WG_BLOCK_Q": WG_BLOCK_Q,
+           "WG_BLOCK_K": WG_BLOCK_K, "KV_STAGES": KV_STAGES,
+           "MAX_HEAD_DIM": MAX_HEAD_DIM}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _load_lock = threading.Lock()
@@ -49,15 +56,18 @@ def load():
     global _entry
     with _load_lock:
         if _entry is None:
-            lib = load_library("flash_attention", _SOURCE, defines={
-                "BLOCK_Q": BLOCK_Q, "BLOCK_K": BLOCK_K,
-                "MAX_HEAD_DIM": MAX_HEAD_DIM})
-            fn = lib.flash_attention_launch
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                           + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _entry = fn
+            lib = load_library("flash_attention", _SOURCE, defines=DEFINES)
+            _entry = entry_point(lib)
         return _entry
+
+
+def entry_point(lib):
+    """The library's C entry point with its signature set."""
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(q, k, v, causal: bool):
@@ -92,7 +102,7 @@ def _check(q, k, v, causal: bool):
                                      if n > 1)
             for t in (q, k, v)):
         raise ValueError("bf16 rows of q, k and v must start 16-byte "
-                         "aligned: the kernel copies them 16 bytes a thread")
+                         "aligned: the kernel copies them with TMA")
     if causal and sq != k.shape[1]:
         raise ValueError(f"causal attention needs Sq == Sk (the kernel's "
                          f"mask is top-left aligned), got {sq} and "
@@ -117,7 +127,15 @@ flash_attention.launches = 0     # kernel launches since the last reset
 
 
 def _launch(q, k, v, causal: bool):
-    fn = load()
+    out = call_entry(load(), q, k, v, causal)
+    with _count_lock:
+        flash_attention.launches += 1
+    return out
+
+
+def call_entry(fn, q, k, v, causal: bool):
+    """Run the C entry point ``fn`` (this source's, or another build's with
+    the same signature) on checked CUDA inputs; returns the output."""
     b, sq, h, hd = q.shape
     _, sk, kh, _ = k.shape
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
@@ -131,8 +149,6 @@ def _launch(q, k, v, causal: bool):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    with _count_lock:
-        flash_attention.launches += 1
     return out
 
 

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch.dataframe import reference as R
+from repro_torch.kernels.bitonic_sort import ops as bs
+from repro_torch.kernels.bitonic_sort.ref import sort_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
@@ -129,12 +131,34 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kh, hd, dtype):
             atol=4e-3, rtol=2e-2)
 
 
+# every head dim the kernel takes, batch 2, lengths that end inside, on and
+# past a 128-row tile, GQA groups 1 and 4
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 129, 300, 2048])
+@pytest.mark.parametrize("group", [1, 4])
+def test_flash_attention_bf16_kernel_across_head_dims(cuda, hd, s, group):
+    gen = torch.Generator(device=cuda).manual_seed(hd * s + group)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((2, s, 4, hd), (2, s, 4 // group, hd),
+                             (2, s, 4 // group, hd)))
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_plain(q.float(), k.float(),
+                                              v.float()),
+        atol=4e-3, rtol=2e-2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_non_causal_and_strided(cuda, dtype):
     """Other kv lengths without the mask; q read through its strides (a
     head-sliced view) and k/v as slices of a wider head dim.  The f32
-    kernel takes rows at any alignment; the bf16 kernel copies rows 16
-    bytes a thread, so a row stride of 68 elements raises."""
+    kernel takes rows at any alignment; the bf16 kernel copies rows with
+    TMA, which needs 16-byte aligned rows, so a row stride of 68 elements
+    raises."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(2, 70, 8, 64, generator=gen, device=cuda).to(dtype)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
@@ -288,3 +312,79 @@ def test_serve_lm_serves_falcon_mamba_on_the_card(cuda):
     serve_lm.main(["--device", str(cuda), "--arch", "falcon-mamba-7b"])
     assert ssm_ops.ssm_scan.launches > before[0]
     assert radix_partition.launches > before[1]
+
+
+# the JAX sweep (tests/test_kernels.py), then rows that end inside, on and
+# past one CTA's chunk, a row of 2^20 keys, 64 rows, and the main shape of
+# benchmarks/bench_kernels.py
+SORT_SWEEP = [(1, 64), (4, 100), (2, 256), (3, 17), (1, bs.CHUNK - 1),
+              (1, bs.CHUNK), (2, bs.CHUNK + 1), (1, 1 << 20), (64, 1000),
+              (4, 1 << 18)]
+
+
+def _sort_keys(cuda, rows, n, dtype, kind, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if kind == "ties":
+        k = torch.randint(-3, 3, (rows, n), generator=gen, device=cuda)
+    elif dtype == torch.int32:
+        k = torch.randint(0, 1 << 30, (rows, n), generator=gen, device=cuda)
+    else:
+        k = torch.randn(rows, n, generator=gen, device=cuda)
+    k = k.to(dtype)
+    if kind == "edges":       # signed zeros, NaN, the dtype's extremes
+        lo, hi = ((torch.iinfo if dtype == torch.int32 else torch.finfo)(
+            dtype).min, (torch.iinfo if dtype == torch.int32 else
+                         torch.finfo)(dtype).max)
+        special = [lo, hi, 0, hi]
+        if dtype == torch.float32:
+            special += [-0.0, float("nan"), float("inf"), -float("inf")]
+        pick = torch.randint(0, len(special), (rows, n), generator=gen,
+                             device=cuda)
+        where = torch.rand(rows, n, generator=gen, device=cuda) < 0.3
+        k = torch.where(where, torch.tensor(special, dtype=dtype,
+                                            device=cuda)[pick], k)
+    return k
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("rows,n", SORT_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("kind", ["random", "ties", "edges"])
+def test_bitonic_sort_kernel_matches_plain_bit_for_bit(cuda, rows, n, dtype,
+                                                       kind):
+    keys = _sort_keys(cuda, rows, n, dtype, kind, seed=n)
+    before = bs.bitonic_sort.launches
+    ks, ps = bs.bitonic_sort(keys)
+    torch.cuda.synchronize()
+    assert bs.bitonic_sort.launches == before + 1
+    kp, pp = bs.bitonic_sort_plain(keys)
+    assert torch.equal(_bits(ks), _bits(kp)) and torch.equal(ps, pp)
+    if kind != "edges":       # NaN leaves a row unsorted, as in the reference
+        kr, _ = sort_ref(keys, pp)
+        assert torch.equal(ks, kr)
+        assert torch.equal(torch.take_along_dim(keys, ps.long(), -1), kr)
+
+
+def test_bitonic_sort_kernel_takes_a_payload(cuda):
+    keys = _sort_keys(cuda, 3, 5000, torch.float32, "random")
+    payload = torch.randint(-9, 9, (3, 5000), dtype=torch.int32, device=cuda)
+    ks, ps = bs.bitonic_sort(keys, payload)
+    kp, pp = bs.bitonic_sort_plain(keys, payload)
+    assert torch.equal(ks, kp) and torch.equal(ps, pp)
+
+
+def test_bitonic_sort_kernel_raises_not_falls_back(cuda):
+    for dtype in (torch.int64, torch.float64, torch.bfloat16):
+        with pytest.raises(ValueError, match="int32 or float32"):
+            bs.bitonic_sort(torch.zeros(2, 8, dtype=dtype, device=cuda))
+    with pytest.raises(ValueError):
+        bs.bitonic_sort(torch.zeros(2, 8, device=cuda),
+                        torch.zeros(2, 8, dtype=torch.int32))
+    before = bs.bitonic_sort.launches
+    for shape in ((0, 5), (3, 0), (2, 1)):       # nothing to sort
+        ks, ps = bs.bitonic_sort(torch.ones(shape, device=cuda))
+        assert ks.shape == ps.shape == shape
+    assert bs.bitonic_sort.launches == before

@@ -1,10 +1,10 @@
 """The port's kernels against the JAX package's: radix_partition,
-flash_attention and ssm_scan.
+flash_attention, ssm_scan and bitonic_sort.
 
 On the CPU the port's wrappers take their plain PyTorch versions; the JAX
 kernels run in interpret mode, as ``tests/test_kernels.py`` runs them.
-radix_partition's outputs are integers and are compared bit-exact;
-flash_attention's and ssm_scan's at the tolerances of
+radix_partition's and bitonic_sort's outputs (payloads included) are
+compared bit-exact; flash_attention's and ssm_scan's at the tolerances of
 ``tests/test_kernels.py``.  The CUDA kernels themselves run only on the
 card: ``tests/test_torch_cuda.py``.
 """
@@ -16,6 +16,8 @@ import torch
 
 from tests._hypothesis_compat import given, settings, st
 
+from repro.kernels.bitonic_sort.ops import bitonic_sort as jax_bitonic
+from repro.kernels.bitonic_sort.ref import sort_ref as jax_sort_ref
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro.kernels.radix_partition.ops import radix_partition as jax_radix
@@ -24,6 +26,8 @@ from repro.kernels.radix_partition.ref import (
 )
 from repro.kernels.ssm_scan.ops import ssm_scan as jax_ssm_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_ssm_ref
+from repro_torch.kernels.bitonic_sort import ops as bs
+from repro_torch.kernels.bitonic_sort.ref import sort_ref as torch_sort_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
@@ -307,9 +311,9 @@ def test_flash_attention_non_causal_takes_other_lengths():
 
 def test_flash_attention_build_takes_its_constants_from_the_wrapper(
         monkeypatch, tmp_path):
-    """nvcc gets the tile sizes and the largest head dim from ops.py as -D
-    flags (the source defines none of them), and the entry point's
-    signature is set once."""
+    """nvcc gets the tile sizes, the kv ring's depth and the largest head
+    dim from ops.py as -D flags (the source defines none of them), and the
+    entry point's signature is set once."""
     import subprocess
     import types
     from repro_torch.kernels import _nvcc
@@ -330,7 +334,8 @@ def test_flash_attention_build_takes_its_constants_from_the_wrapper(
     monkeypatch.setattr(fa, "_entry", None)
     fn = fa.load()
     assert fa.load() is fn and len(cmds) == 1
-    for name in ("BLOCK_Q", "BLOCK_K", "MAX_HEAD_DIM"):
+    for name in ("BLOCK_Q", "BLOCK_K", "WG_BLOCK_Q", "WG_BLOCK_K",
+                 "KV_STAGES", "MAX_HEAD_DIM"):
         assert f"-D{name}={getattr(fa, name)}" in cmds[0]
         assert f"#define {name}" not in fa._SOURCE.read_text()
     assert len(fn.argtypes) == 15
@@ -517,3 +522,183 @@ def test_ssm_scan_build_takes_its_constants_from_the_wrapper(monkeypatch,
         assert f"-D{name}={getattr(ssm_ops, name)}" in cmds[0]
         assert f"#define {name}" not in ssm_ops._SOURCE.read_text()
     assert len(fn.argtypes) == 14
+
+
+def test_flash_attention_ab_needs_a_card():
+    """The old-against-new timing script refuses to run without CUDA."""
+    from repro_torch.kernels.flash_attention import ab
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        ab.main(["--other", str(fa._SOURCE), "--other-define", "KV_STAGES=3"])
+
+
+# ---------------------------------------------------------------------------
+# bitonic_sort: the port's plain version (what a CPU tensor runs) runs the
+# JAX kernel's network stage by stage, so keys and payloads equal the JAX
+# kernel's in interpret mode bit for bit
+# ---------------------------------------------------------------------------
+def _sort_keys(rows, n, dtype, seed=0):
+    """Keys as tests/test_kernels.py draws them (ints in [-500, 500), normal
+    floats), from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        return rng.integers(-500, 500, (rows, n)).astype(np.int32)
+    return rng.standard_normal((rows, n)).astype(np.float32)
+
+
+def _jax_sort(keys, payload=None):
+    ks, ps = jax_bitonic(jnp.asarray(keys), None if payload is None
+                         else jnp.asarray(payload), interpret=True)
+    return np.asarray(ks), np.asarray(ps)
+
+
+def _same_bits(a, b):
+    """Equal as stored: NaN equals NaN and -0.0 differs from +0.0."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("rows,n", [(1, 16), (3, 17), (1, 64), (4, 100),
+                                    (2, 256)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_bitonic_sort_plain_equals_jax_kernel_bit_for_bit(rows, n, dtype):
+    keys = _sort_keys(rows, n, dtype, seed=n)
+    ks, ps = bs.bitonic_sort_plain(torch.from_numpy(keys))
+    assert ks.dtype == getattr(torch, dtype) and ps.dtype == torch.int32
+    jk, jp = _jax_sort(keys)
+    assert _same_bits(ks.numpy(), jk) and _same_bits(ps.numpy(), jp)
+    # keys equal both oracles; the payload regathers them
+    kr, _ = jax_sort_ref(jnp.asarray(keys), jnp.asarray(jp))
+    tr, _ = torch_sort_ref(torch.from_numpy(keys), ps)
+    np.testing.assert_array_equal(ks.numpy(), np.asarray(kr))
+    np.testing.assert_array_equal(ks.numpy(), tr.numpy())
+    np.testing.assert_array_equal(
+        np.take_along_axis(keys, ps.numpy(), -1), ks.numpy())
+
+
+def test_bitonic_sort_plain_carries_a_payload_like_jax():
+    keys = _sort_keys(3, 40, "float32", seed=4)
+    payload = np.random.default_rng(5).integers(
+        -9, 9, (3, 40)).astype(np.int32)
+    ks, ps = bs.bitonic_sort_plain(torch.from_numpy(keys),
+                                   torch.from_numpy(payload))
+    jk, jp = _jax_sort(keys, payload)
+    assert _same_bits(ks.numpy(), jk) and _same_bits(ps.numpy(), jp)
+
+
+@pytest.mark.parametrize("keys,want_keys,want_payload", [
+    # +inf in a padded row: the pad (finfo.max, payload -1) takes its place
+    ([[np.inf, 1, 2]], [[1, 2, np.finfo(np.float32).max]], [[1, 2, -1]]),
+    # a row holding NaN comes back unsorted
+    ([[np.nan, 1, -0.0, 0, 3, -1, np.nan, 2]],
+     [[-1, 3, 0, np.nan, 1, np.nan, -0.0, 2]], None),
+])
+def test_bitonic_sort_reference_edges_on_floats(keys, want_keys,
+                                                want_payload):
+    keys = np.asarray(keys, np.float32)
+    ks, ps = bs.bitonic_sort(torch.from_numpy(keys))
+    assert _same_bits(ks.numpy(), np.asarray(want_keys, np.float32))
+    if want_payload is not None:
+        np.testing.assert_array_equal(ps.numpy(), want_payload)
+    jk, jp = _jax_sort(keys)
+    assert _same_bits(ks.numpy(), jk) and _same_bits(ps.numpy(), jp)
+
+
+def test_bitonic_sort_int32_max_ties_with_the_pad():
+    """INT32_MAX keys tie with the pad, so the trimmed payload may hold -1
+    where the pad was kept."""
+    imax = np.iinfo(np.int32).max
+    keys = np.asarray([[imax, imax, 1]], np.int32)     # padded to 4
+    ks, ps = bs.bitonic_sort(torch.from_numpy(keys))
+    np.testing.assert_array_equal(ks.numpy(), [[1, imax, imax]])
+    np.testing.assert_array_equal(ps.numpy(), [[2, 0, -1]])
+    jk, jp = _jax_sort(keys)
+    assert _same_bits(ks.numpy(), jk) and _same_bits(ps.numpy(), jp)
+
+
+@pytest.mark.parametrize("shape", [(3, 0), (2, 1), (0, 5), (0, 0)])
+def test_bitonic_sort_pads_and_trims_empty_and_single_rows(shape):
+    keys = torch.zeros(shape, dtype=torch.int32)
+    before = bs.bitonic_sort.launches
+    ks, ps = bs.bitonic_sort(keys)
+    assert ks.shape == ps.shape == shape and ps.dtype == torch.int32
+    assert bs.bitonic_sort.launches == before
+    if shape[0]:     # the JAX kernel's grid cannot take 0 rows
+        jk, jp = _jax_sort(keys.numpy())
+        assert _same_bits(ks.numpy(), jk) and _same_bits(ps.numpy(), jp)
+    if shape == (2, 1):
+        assert ps.tolist() == [[0], [0]]     # the default payload
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64, torch.int16,
+                                   torch.bfloat16, torch.uint8])
+def test_bitonic_sort_plain_takes_any_real_dtype_on_the_cpu(dtype):
+    keys = torch.from_numpy(_sort_keys(3, 37, "int32", seed=7) % 200 + 20)
+    keys = keys.to(dtype)
+    ks, ps = bs.bitonic_sort(keys)
+    assert ks.dtype == dtype
+    assert torch.equal(ks, torch.sort(keys, dim=-1).values)
+    assert torch.equal(torch.take_along_dim(keys, ps.long(), -1), ks)
+
+
+def test_bitonic_sort_cpu_path_is_the_plain_version():
+    keys = torch.from_numpy(_sort_keys(2, 50, "float32", seed=2))
+    before = bs.bitonic_sort.launches
+    got, want = bs.bitonic_sort(keys), bs.bitonic_sort_plain(keys)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bs.bitonic_sort.launches == before     # no kernel on the CPU
+
+
+def test_bitonic_sort_torch_ref_matches_jax_ref():
+    keys = _sort_keys(4, 300, "int32", seed=11) // 50      # many ties
+    payload = np.broadcast_to(np.arange(300, dtype=np.int32), (4, 300))
+    tk, tp = torch_sort_ref(torch.from_numpy(keys),
+                            torch.from_numpy(payload.copy()))
+    jk, jp = jax_sort_ref(jnp.asarray(keys), jnp.asarray(payload))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("keys,payload,err", [
+    (torch.zeros(2, 3, 4), None, ValueError),                   # 3-D
+    (torch.zeros(2, 4, dtype=torch.bool), None, ValueError),
+    (torch.zeros(2, 4, dtype=torch.complex64), None, ValueError),
+    (torch.zeros(2, 4), torch.zeros(2, 4), ValueError),         # f32 payload
+    (torch.zeros(2, 4), torch.zeros(2, 5, dtype=torch.int32), ValueError),
+    (torch.zeros(2, 4, device="meta"), None, ValueError),       # device
+    (np.zeros((2, 4)), None, TypeError),
+])
+def test_bitonic_sort_rejects_what_it_does_not_take(keys, payload, err):
+    with pytest.raises(err):
+        bs.bitonic_sort(keys, payload)
+
+
+def test_bitonic_sort_build_takes_its_constants_from_the_wrapper(
+        monkeypatch, tmp_path):
+    """nvcc gets the chunk and the CTA size from ops.py as -D flags (the
+    source defines neither), and the entry point's signature is set
+    once."""
+    import subprocess
+    import types
+    from repro_torch.kernels import _nvcc
+    cmds = []
+
+    def fake_nvcc(cmd, **_):
+        cmds.append(cmd)
+        (tmp_path / cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_nvcc, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_nvcc.subprocess, "run", fake_nvcc)
+    monkeypatch.setattr(_nvcc.ctypes, "CDLL", lambda _: types.SimpleNamespace(
+        bitonic_sort_launch=types.SimpleNamespace()))
+    monkeypatch.setattr(_nvcc, "_loaded", {})
+    monkeypatch.setattr(_nvcc, "build_log", {})
+    monkeypatch.setattr(bs, "_entry", None)
+    fn = bs.load()
+    assert bs.load() is fn and len(cmds) == 1
+    for name in ("CHUNK", "THREADS"):
+        assert f"-D{name}={getattr(bs, name)}" in cmds[0]
+        assert f"#define {name}" not in bs._SOURCE.read_text()
+    assert len(fn.argtypes) == 6
