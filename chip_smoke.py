@@ -510,7 +510,7 @@ def _bitonic_spec():
         return {"rows": rows, "n": n,
                 "dtype": str(dtype).removeprefix("torch."), "keys": kind}
 
-    c = bs.CHUNK
+    c, regs = bs.CHUNK, 1 << bs.REG_BITS
     return {
         "name": "bitonic_sort",
         "route": "cuda",
@@ -529,10 +529,16 @@ def _bitonic_spec():
         # the same rows of float32 keys
         "main_shapes": ((SORT_ROWS, SORT_N, I32, "bench"),
                         (SORT_ROWS, SORT_N, F32, "random")),
+        "timed": ((SORT_ROWS, SORT_N, I32, "bench"),
+                  (SORT_ROWS, SORT_N, F32, "random")),
+        # the JAX test sweep, rows about a thread's registers, a warp's and
+        # a chunk, rows of 2, 3 and 15 passes
         "sweep": (
             *((r, n, dt, "random") for r, n in (
-                *SORT_TEST_SHAPES, (1, c - 1), (1, c), (2, c + 1),
-                (1, 1 << 20), (64, 1000)) for dt in (I32, F32)),
+                *SORT_TEST_SHAPES, (2, regs - 1), (2, regs + 1),
+                (1, 32 * regs), (3, 32 * regs + 1), (1, c - 1), (1, c),
+                (2, c + 1), (3, 4 * c - 5), (1, 1 << 20), (1, 1 << 22),
+                (64, 1000)) for dt in (I32, F32)),
             *((4, 5000, dt, kind) for dt in (I32, F32)
               for kind in ("ties", "max")),
             (2, 3000, F32, "signed_zeros")),
@@ -568,8 +574,9 @@ def phase_build(specs):
 
 def phase_kernels(specs, gen):
     """Each kernel against its plain version at every main-path shape and
-    across the sweep, then timed at the first main-path shape beside its
-    plain version and its library yardstick."""
+    across the sweep, then timed at the first main-path shape (and at its
+    spec's "timed" shapes) beside its plain version and its library
+    yardstick."""
     records = {}
     for spec in specs:
         checks, max_err = [], 0
@@ -590,33 +597,42 @@ def phase_kernels(specs, gen):
                                      f"plain version at {shape}: max abs "
                                      f"err {err}")
             del args, out, ref
-        shape = spec["main_shapes"][0]
-        args = spec["inputs"](shape, gen)
-        lib_err = library_ms = None
-        if spec["library"] is not None:
-            lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),
-                                                 spec["plain"](*args), args,
-                                                 yardstick=True)
-            if not lib_ok:
-                raise AssertionError(f"{spec['name']}: library yardstick "
-                                     f"differs by {lib_err}")
-            library_ms = time_ms(lambda: spec["library"](*args))
-        ms = time_ms(lambda: spec["wrapper"](*args, **kw))
-        plain_ms = time_ms(lambda: spec["plain"](*args, **kw), reps=5,
-                           warmup=1)
-        bound_ms, bound_by = spec["bound"](shape)
+        # the first main-path shape goes into the kernel summary line;
+        # "timed" names more shapes to time (their numbers go to this line)
+        timings = [_time_kernel(spec, shape, gen, kw) for shape in
+                   spec.get("timed", spec["main_shapes"][:1])]
+        t = timings[0]
         records[spec["name"]] = {
             "name": spec["name"], "route": spec["route"],
             "source": spec["source"], "replaces": spec["replaces"],
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": spec["describe"](shape)}
-        emit("kernels", name=spec["name"], checks=checks, kernel_ms=ms,
-             bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
-             library_ms=library_ms, library_max_abs_err=lib_err,
-             shape=spec["describe"](shape), tolerance=spec["tolerance"])
-        del args
+            "launches": 0, "max_abs_err": max_err, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"]}
+        emit("kernels", name=spec["name"], checks=checks, **t,
+             timed=timings[1:], tolerance=spec["tolerance"])
     return records
+
+
+def _time_kernel(spec, shape, gen, kw) -> dict:
+    """The kernel's time at ``shape`` beside its bound, its plain version's
+    and its library yardstick's (first held to the plain version)."""
+    args = spec["inputs"](shape, gen)
+    lib_err = library_ms = None
+    if spec["library"] is not None:
+        lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),
+                                             spec["plain"](*args), args,
+                                             yardstick=True)
+        if not lib_ok:
+            raise AssertionError(f"{spec['name']}: library yardstick "
+                                 f"differs by {lib_err}")
+        library_ms = time_ms(lambda: spec["library"](*args))
+    ms = time_ms(lambda: spec["wrapper"](*args, **kw))
+    plain_ms = time_ms(lambda: spec["plain"](*args, **kw), reps=5, warmup=1)
+    bound_ms, bound_by = spec["bound"](shape)
+    return {"kernel_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "shape": spec["describe"](shape)}
 
 
 class MainPath:

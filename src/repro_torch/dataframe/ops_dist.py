@@ -168,7 +168,9 @@ def _dist_sort(shards: list, key: str, devices: list, slack: float):
         ssorted = torch.sort(a.reshape(-1)).values
         splitters = ssorted[torch.arange(1, n_parts, device=t.device)
                             * n_parts].contiguous()               # (P-1,)
-        target = torch.searchsorted(splitters, t.columns[key], right=True)
+        target = torch.searchsorted(L.search_image(splitters),
+                                    L.search_image(t.columns[key]),
+                                    right=True)
         targets.append(torch.where(t.valid_mask(), target.to(torch.int32), 0))
     shuffled, ovf = _shuffle(ts, targets, devices, slack)
     return [L.sort_by(s, key) for s in shuffled], ovf

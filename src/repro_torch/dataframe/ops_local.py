@@ -27,10 +27,41 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
 
 def hash_key(key: torch.Tensor) -> torch.Tensor:
     """Knuth multiplicative hash with wrapping uint32 arithmetic (the JAX
-    ``hash_key``); the uint32 values come back in an int64 tensor."""
-    k = key.to(torch.int64) & _MASK32
+    ``hash_key``); the uint32 values come back in an int64 tensor.
+
+    Float keys take XLA's saturating float -> uint32 convert first, as the
+    JAX ``astype(jnp.uint32)`` does: NaN and values below 0 give 0, values
+    of 2**32 and above (+inf too) give 2**32 - 1, the rest truncate toward
+    zero.  Integer keys wrap to their low 32 bits."""
+    if key.is_floating_point():
+        x = key.to(torch.float64)
+        x = torch.where(x >= 2.0 ** 32, _MASK32, torch.where(x > 0, x, 0.0))
+        k = x.to(torch.int64)
+    else:
+        k = key.to(torch.int64) & _MASK32
     h = _mul32(k, _HASH_MULT) ^ (k >> 16)
     return _mul32(h, _HASH_MULT)
+
+
+def search_image(x: torch.Tensor) -> torch.Tensor:
+    """An integer tensor whose order is the order ``jnp.searchsorted``
+    compares float keys in (``lax._sort_lt_comparator``): NaN of either
+    sign is one value above +inf, -0.0 equals +0.0, every other float keeps
+    its IEEE order.  ``torch.searchsorted`` over the images of a sorted
+    sequence and of the values then gives JAX's indices; torch's own binary
+    search orders NaN otherwise.  Integer tensors come back as they are.
+
+    Floats narrower than 32 bits widen to float32 (exactly); the image is
+    the bit pattern with every bit but the sign flipped for negatives."""
+    if not x.is_floating_point():
+        return x
+    if x.dtype != torch.float64:
+        x = x.to(torch.float32)
+    x = torch.where(torch.isnan(x), float("nan"), x)      # canonical NaN
+    x = torch.where(x == 0, 0.0, x)                       # -0.0 -> +0.0
+    ints = torch.int64 if x.dtype == torch.float64 else torch.int32
+    bits = x.view(ints)
+    return torch.where(bits < 0, bits ^ torch.iinfo(ints).max, bits)
 
 
 def masked_key(table: Table, key: str) -> torch.Tensor:
@@ -88,6 +119,7 @@ def join_inner(left: Table, right: Table, key: str, out_capacity: int):
     rs = sort_by(right, key)
     lk = masked_key(ls, key)
     rk = masked_key(rs, key)
+    rk, lk = search_image(rk), search_image(lk)
     lo = torch.searchsorted(rk, lk, right=False)
     hi = torch.searchsorted(rk, lk, right=True)
     # clamp matches against invalid right rows

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.dataframe.ops_local import hash_key
+from repro_torch.dataframe.ops_local import hash_key, search_image
 from repro_torch.dataframe.table import Table
 
 
@@ -17,5 +17,6 @@ def range_partition(table: Table, key: str,
                     splitters: torch.Tensor) -> torch.Tensor:
     """Destination = index of the splitter range containing the key.
     splitters: (P-1,) sorted.  Used by distributed sample-sort."""
-    tgt = torch.searchsorted(splitters, table.columns[key], right=True)
+    tgt = torch.searchsorted(search_image(splitters),
+                             search_image(table.columns[key]), right=True)
     return torch.where(table.valid_mask(), tgt.to(torch.int32), 0)

@@ -320,6 +320,14 @@ def test_serve_lm_serves_falcon_mamba_on_the_card(cuda):
 SORT_SWEEP = [(1, 64), (4, 100), (2, 256), (3, 17), (1, bs.CHUNK - 1),
               (1, bs.CHUNK), (2, bs.CHUNK + 1), (1, 1 << 20), (64, 1000),
               (4, 1 << 18)]
+# rows below, at and just above a thread's registers (2^REG_BITS), a warp's
+# (32 threads' registers) and a CTA's chunk; rows of 2 and 3 passes, where a
+# pass runs strides of several sizes; rows of 2^20 and 2^22
+_REGS = 1 << bs.REG_BITS
+SORT_SPANS = [(3, _REGS - 1), (2, _REGS), (2, _REGS + 1), (2, 32 * _REGS - 1),
+              (1, 32 * _REGS), (3, 32 * _REGS + 1), (1, bs.CHUNK // 2),
+              (2, 2 * bs.CHUNK), (3, 4 * bs.CHUNK - 5), (5, 3 * bs.CHUNK),
+              (2, 1 << 20), (1, 1 << 22)]
 
 
 def _sort_keys(cuda, rows, n, dtype, kind, seed=0):
@@ -366,6 +374,39 @@ def test_bitonic_sort_kernel_matches_plain_bit_for_bit(cuda, rows, n, dtype,
         kr, _ = sort_ref(keys, pp)
         assert torch.equal(ks, kr)
         assert torch.equal(torch.take_along_dim(keys, ps.long(), -1), kr)
+
+
+@pytest.mark.parametrize("rows,n", SORT_SPANS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_bitonic_sort_kernel_matches_plain_across_its_spans(cuda, rows, n,
+                                                            dtype):
+    """Shapes that cross each level of the kernel's layout and cut the
+    network into 1 to 15 passes, each bit-exact against the plain version
+    (keys as bits, payloads), with ties, NaN, signed zeros and the dtype's
+    extremes among the keys."""
+    keys = _sort_keys(cuda, rows, n, dtype, "edges", seed=n)
+    ks, ps = bs.bitonic_sort(keys)
+    kp, pp = bs.bitonic_sort_plain(keys)
+    assert torch.equal(_bits(ks), _bits(kp)) and torch.equal(ps, pp)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_bitonic_sort_kernel_leaves_the_callers_tensors_alone(cuda, dtype):
+    """The first pass reads the keys and payload and writes fresh outputs:
+    the caller's tensors, here views with a row stride of their own, keep
+    their bits."""
+    base = _sort_keys(cuda, 3, 2 * bs.CHUNK + 64, dtype, "edges", seed=3)
+    keys = base[:, 10:10 + 2 * bs.CHUNK + 3]            # strided rows
+    payload = torch.randint(-9, 9, (3, 3 * bs.CHUNK), dtype=torch.int32,
+                            device=cuda)[:, :keys.shape[1]]
+    before = (_bits(base).clone(), payload.clone())
+    ks, ps = bs.bitonic_sort(keys, payload)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(base), before[0])
+    assert torch.equal(payload, before[1])
+    kp, pp = bs.bitonic_sort_plain(keys, payload)
+    assert torch.equal(_bits(ks), _bits(kp)) and torch.equal(ps, pp)
+    assert ks.data_ptr() != keys.data_ptr()
 
 
 def test_bitonic_sort_kernel_takes_a_payload(cuda):

@@ -408,3 +408,164 @@ def test_dist_ops_four_ranks_match_jax_four_host_devices(tmp_path,
         assert bool(ovf) == bool(got[name + "/ovf"])
         _assert_same_dist(jt, t, float_cols=("v",) if name == "groupby"
                           else ())
+
+
+# ---------------------------------------------------------------------------
+# float keys: XLA's saturating float -> uint32 convert in hash_key, and
+# searchsorted in JAX's order (NaN above +inf and equal to itself, -0.0 equal
+# to +0.0) in join_inner, range_partition and the dist sort's splitters
+# ---------------------------------------------------------------------------
+_F32_EDGES = np.asarray([-1, -1.5, 0, -0.0, 0.5, 1.5, 2**31, 2**32 - 256,
+                         2**32, 2**32 + 5, 1e20, -1e20, np.inf, -np.inf,
+                         np.nan, -np.nan], np.float32)
+
+
+def _hash_keys(kind):
+    rng = np.random.default_rng(5)
+    if kind == "f32_edges":
+        return _F32_EDGES
+    if kind == "f32_random":        # signs, fractions and 2^32 overflow
+        return (rng.standard_normal(3000) * 10.0 ** rng.integers(
+            0, 12, 3000)).astype(np.float32)
+    return rng.integers(-2**31, 2**31 - 1, 3000, dtype=np.int32)
+
+
+@pytest.mark.parametrize("kind", ["f32_edges", "f32_random", "i32_random"])
+def test_hash_key_matches_jax_on_float_and_int_keys(kind):
+    keys = _hash_keys(kind)
+    want = np.asarray(JL.hash_key(jnp.asarray(keys))).astype(np.int64)
+    got = L.hash_key(torch.from_numpy(keys))
+    np.testing.assert_array_equal(got.numpy(), want)
+    jt, pt = _both({"k": keys}, capacity=len(keys) + 3)
+    for n_parts in (2, 3, 4):
+        np.testing.assert_array_equal(
+            partition.hash_partition(pt, "k", n_parts).numpy(),
+            np.asarray(jax_partition.hash_partition(jt, "k", n_parts)))
+
+
+def test_hash_partition_sends_negative_float_keys_where_jax_does():
+    """Keys [-1, -2, 3, -4] at P = 2: JAX sends three rows to rank 0."""
+    jt, pt = _both({"k": np.asarray([-1, -2, 3, -4], np.float32)})
+    got = partition.hash_partition(pt, "k", 2).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_partition.hash_partition(jt, "k", 2)))
+    assert np.bincount(got, minlength=2).tolist() == [3, 1]
+
+
+def test_search_image_orders_floats_as_jax_searchsorted():
+    x = torch.tensor([-np.inf, -1e30, -1.5, -0.0, 0.0, 1e-45, 1.5, np.inf,
+                      np.nan, -np.nan], dtype=torch.float32)
+    img = L.search_image(x)
+    assert img.dtype == torch.int32
+    assert bool((img[1:8] > img[:7]).all() | (img[3] == img[4]))
+    assert int(img[3]) == int(img[4]) and int(img[8]) == int(img[9]) > \
+        int(img[7])
+    for dt in (torch.float64, torch.bfloat16):
+        assert torch.equal(torch.argsort(L.search_image(x.to(dt)),
+                                         stable=True),
+                           torch.argsort(img, stable=True))
+    ints = torch.tensor([3, -1], dtype=torch.int32)
+    assert L.search_image(ints) is ints             # integers bypass it
+
+
+@pytest.mark.parametrize("lk,rk", [
+    ([1.0], [np.nan, 1.0]),
+    ([np.nan], [np.nan]),
+    ([1.0, 2.0], [np.nan, 2.0, 1.0]),
+    ([-0.0, np.nan, 3.0, np.inf], [0.0, np.nan, np.inf, -np.inf, np.nan]),
+])
+def test_join_inner_matches_jax_on_nan_keys(lk, rk):
+    """Full tables (no padding rows), so the reference's padded-NaN
+    behaviour of sort_by does not arise."""
+    left = {"k": np.asarray(lk, np.float32),
+            "v": np.arange(len(lk), dtype=np.float32)}
+    right = {"k": np.asarray(rk, np.float32),
+             "w": np.arange(len(rk), dtype=np.float32) + 100}
+    jl, pl = _both(left)
+    jr, pr = _both(right)
+    jo, jovf = JL.join_inner(jl, jr, "k", 12)
+    po, povf = L.join_inner(pl, pr, "k", 12)
+    _assert_same_table(jo, po)
+    assert bool(povf) == bool(jovf)
+
+
+_NAN_SORT_KEYS = np.asarray([np.nan, 1, np.nan, 2, 5, np.nan, np.nan, 3],
+                            np.float32)
+
+
+@pytest.mark.parametrize("splitters", [[2.0], [3.0, np.nan], [np.nan],
+                                       [-0.0, 2.0, np.inf]])
+def test_range_partition_matches_jax_on_nan_keys(splitters):
+    keys = np.concatenate([_NAN_SORT_KEYS, [0.0, -0.0, np.inf, -np.inf]]
+                          ).astype(np.float32)
+    jt, pt = _both({"k": keys}, capacity=len(keys) + 2)
+    sp = np.asarray(splitters, np.float32)
+    np.testing.assert_array_equal(
+        partition.range_partition(pt, "k", torch.from_numpy(sp)).numpy(),
+        np.asarray(jax_partition.range_partition(jt, "k", jnp.asarray(sp))))
+
+
+_JAX_P2_FLOAT_KEYS = r"""
+import numpy as np, jax
+from repro.core import build_communicator
+from repro.dataframe import ops_dist as D
+comm = build_communicator(jax.devices(), axes=("df",))
+neg = np.asarray([-1, -2, 3, -4], np.float32)
+a = {"k": neg, "v": np.arange(4, dtype=np.float32)}
+b = {"k": neg, "w": np.arange(4, dtype=np.float32) + 100}
+s = {"k": np.asarray([np.nan, 1, np.nan, 2, 5, np.nan, np.nan, 3],
+                     np.float32), "v": np.arange(8, dtype=np.float32)}
+outs = {"join": D.make_dist_join(comm.mesh, "k")(D.shard_table(comm, a, 4),
+                                                 D.shard_table(comm, b, 4)),
+        "groupby": D.make_dist_groupby_sum(comm.mesh, "k", ["v"])(
+            D.shard_table(comm, a, 4)),
+        "sort": D.make_dist_sort(comm.mesh, "k")(D.shard_table(comm, s, 4))}
+arrs = {}
+for name, (t, ovf) in outs.items():
+    arrs[name + "/nrows"] = np.asarray(t.nrows)
+    arrs[name + "/ovf"] = np.asarray(ovf)
+    for k, v in t.columns.items():
+        arrs[name + "/" + k] = np.asarray(v)
+np.savez(OUT, **arrs)
+print("P2_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_p2_float_keys(tmp_path_factory):
+    """The JAX package's dist join, groupby-sum and sort of float keys on 2
+    host devices (a fresh interpreter: the device count is fixed at JAX's
+    start)."""
+    out = tmp_path_factory.mktemp("p2") / "jax_p2.npz"
+    assert "P2_OK" in run_with_devices(
+        f"OUT = {str(out)!r}\n" + _JAX_P2_FLOAT_KEYS, n_devices=2)
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("op", ["join", "groupby", "sort"])
+def test_dist_ops_two_ranks_match_jax_on_float_keys(op, jax_p2_float_keys):
+    """Per-rank row counts and rows equal JAX's at P = 2: join and groupby
+    hash keys [-1, -2, 3, -4] (float32; JAX puts 3 rows on rank 0), the
+    sort searches splitters among NaN keys (JAX: 4 rows a rank)."""
+    comm2 = build_communicator(logical_devices(2, CPU))
+    neg = np.asarray([-1, -2, 3, -4], np.float32)
+    a = {"k": neg, "v": np.arange(4, dtype=np.float32)}
+    if op == "join":
+        b = {"k": neg, "w": np.arange(4, dtype=np.float32) + 100}
+        t, ovf = D.make_dist_join(comm2, "k")(D.shard_table(comm2, a, 4),
+                                              D.shard_table(comm2, b, 4))
+    elif op == "groupby":
+        t, ovf = D.make_dist_groupby_sum(comm2, "k", ["v"])(
+            D.shard_table(comm2, a, 4))
+    else:
+        s = {"k": _NAN_SORT_KEYS, "v": np.arange(8, dtype=np.float32)}
+        t, ovf = D.make_dist_sort(comm2, "k")(D.shard_table(comm2, s, 4))
+    got = jax_p2_float_keys
+    cols = {k.split("/", 1)[1]: got[k] for k in got
+            if k.startswith(op + "/") and k.split("/")[1]
+            not in ("nrows", "ovf")}
+    jt = JTable(columns=cols, nrows=got[op + "/nrows"])
+    assert bool(ovf) == bool(got[op + "/ovf"])
+    _assert_same_dist(jt, t)
+    want_nrows = {"join": [3, 1], "groupby": [3, 1], "sort": [4, 4]}[op]
+    assert to_reference(t)[1].tolist() == want_nrows

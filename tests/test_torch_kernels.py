@@ -524,11 +524,25 @@ def test_ssm_scan_build_takes_its_constants_from_the_wrapper(monkeypatch,
     assert len(fn.argtypes) == 14
 
 
+@pytest.mark.parametrize("module,argv", [
+    ("repro_torch.kernels.ab", ["bitonic_sort", "--other-define",
+                                "REG_BITS=5"]),
+    ("repro_torch.kernels.bitonic_sort.op_costs", []),
+])
+def test_bitonic_sort_measurement_scripts_need_a_card(module, argv):
+    """The timing scripts refuse to run without CUDA (no CPU number is ever
+    reported as a device's)."""
+    import importlib
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        importlib.import_module(module).main(argv)
+
+
 def test_flash_attention_ab_needs_a_card():
     """The old-against-new timing script refuses to run without CUDA."""
-    from repro_torch.kernels.flash_attention import ab
+    from repro_torch.kernels import ab
     with pytest.raises(SystemExit, match="no CUDA device"):
-        ab.main(["--other", str(fa._SOURCE), "--other-define", "KV_STAGES=3"])
+        ab.main(["flash_attention", "--other-source", str(fa._SOURCE),
+                 "--other-define", "KV_STAGES=3"])
 
 
 # ---------------------------------------------------------------------------
@@ -584,6 +598,134 @@ def test_bitonic_sort_plain_carries_a_payload_like_jax():
                                    torch.from_numpy(payload))
     jk, jp = _jax_sort(keys, payload)
     assert _same_bits(ks.numpy(), jk) and _same_bits(ps.numpy(), jp)
+
+
+# The CUDA kernel runs the network in passes of ops that ops.plan encodes.
+# _plan_model executes those ops as the kernel does (a thread's registers in
+# its window, lanes, moves through shared memory, each op's direction rule),
+# so the schedule and its encoding are checked here against the plain
+# version; the kernel itself runs only on the card.
+_PATTERN = [sum(1 << r for r in range(32) if r >> b & 1) for b in range(5)]
+
+
+def _deposit(vals, bits):
+    out = np.zeros(np.shape(vals), np.int64)
+    for i, b in enumerate(bits):
+        out |= ((vals >> i) & 1).astype(np.int64) << b
+    return out
+
+
+def _plan_model(keys, payload=None):
+    rows, n = keys.shape
+    m = bs._next_pow2(n)
+    log_m, total = m.bit_length() - 1, rows * m
+    e, threads = 1 << bs.REG_BITS, bs.THREADS
+    t, r = np.arange(threads)[:, None], np.arange(e)[None, :]
+    big = (np.iinfo if keys.dtype.kind == "i" else np.finfo)(keys.dtype).max
+    flat_k, flat_p = np.empty(total, keys.dtype), np.empty(total, np.int32)
+
+    def local(w):        # (thread, register) -> local index in window w
+        return (t & ((1 << w) - 1)) | (r << w) | ((t >> w) << (w + bs.REG_BITS))
+    for i, (owned, w, ops) in enumerate(bs.plan(log_m)):
+        ctas = -(-total // bs.CHUNK)
+        base = _deposit(np.arange(ctas), [b for b in range(63)
+                                          if b not in owned])
+
+        def flat(w):
+            return base[:, None, None] + _deposit(local(w), owned)[None]
+        f = flat(w)
+        if i == 0:         # the caller's keys, the pad, arange(n)
+            row, idx = f >> log_m, f & (m - 1)
+            inb = (f < total) & (idx < n)
+            ri, ii = np.where(inb, row, 0), np.where(inb, idx, 0)
+            k = np.where(inb, keys[ri, ii], big).astype(keys.dtype)
+            p = np.where(inb, ii if payload is None else payload[ri, ii],
+                         -1).astype(np.int32)
+        else:
+            k, p = flat_k[f], flat_p[f]
+        for op in ops:
+            kind, arg = op & 3, (op >> 2) & 15
+            dkind, darg = (op >> 6) & 3, (op >> 8) & 63
+            count = ((op >> 14) & 7) + 1
+            if kind == bs.OP_RELAYOUT or op & bs.MOVE_FIRST:
+                sk = np.empty((ctas, bs.CHUNK), k.dtype)
+                sp = np.empty((ctas, bs.CHUNK), np.int32)
+                sk[:, local(w)], sp[:, local(w)] = k, p
+                w = arg if kind == bs.OP_RELAYOUT else (op >> 18) & 15
+                k, p = sk[:, local(w)], sp[:, local(w)]
+                if kind == bs.OP_RELAYOUT:
+                    continue
+            if dkind == bs.DIR_ASC:
+                mask = np.zeros((1, 1, 1), np.int64)
+            elif dkind == bs.DIR_REG:
+                mask = np.full((1, 1, 1), _PATTERN[darg])
+            elif dkind == bs.DIR_THREAD:
+                mask = -((t[None] >> darg) & 1)
+            else:          # DIR_CTA
+                mask = -((base[:, None, None] >> darg) & 1)
+            desc = ((mask >> r[None]) & 1).astype(bool)
+            if kind == bs.OP_REG:     # a run of strides arg, arg - 1, ..
+                for q in range(arg, arg - count, -1):
+                    lo = np.asarray([x for x in range(e) if not x >> q & 1])
+                    hi = lo | (1 << q)
+                    a, b = k[..., lo], k[..., hi]
+                    pa, pb = p[..., lo], p[..., hi]
+                    keep = np.where(desc[..., lo], a >= b, a <= b)
+                    k, p = k.copy(), p.copy()
+                    k[..., lo], k[..., hi] = np.where(keep, a, b), \
+                        np.where(keep, b, a)
+                    p[..., lo], p[..., hi] = np.where(keep, pa, pb), \
+                        np.where(keep, pb, pa)
+            else:          # OP_SHFL: the partner lane's element
+                for lb in range(arg, arg - count, -1):
+                    partner = np.arange(threads) ^ (1 << lb)
+                    pk, pp = k[:, partner], p[:, partner]
+                    high = ((t >> lb) & 1).astype(bool)[None]
+                    a, b = np.where(high, pk, k), np.where(high, k, pk)
+                    keep = np.where(desc, a >= b, a <= b)
+                    k, p = np.where(keep, k, pk), np.where(keep, p, pp)
+        f = flat(w)
+        flat_k[f[f < total]], flat_p[f[f < total]] = k[f < total], \
+            p[f < total]
+    return flat_k.reshape(rows, m)[:, :n], flat_p.reshape(rows, m)[:, :n]
+
+
+@pytest.mark.parametrize("rows,n", [(1, 2), (3, 17), (2, 1000), (1, 8192),
+                                    (2, 8193), (1, 1 << 16), (1, 1 << 18)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_bitonic_sort_kernel_plan_equals_plain_bit_for_bit(rows, n, dtype):
+    """Ties, NaN, signed zeros and the pad's value among the keys; one case
+    in four carries a payload."""
+    rng = np.random.default_rng(n)
+    if dtype == "int32":
+        keys = rng.integers(-5, 5, (rows, n)).astype(np.int32)
+        keys[rng.random((rows, n)) < 0.05] = np.iinfo(np.int32).max
+    else:
+        keys = rng.standard_normal((rows, n)).astype(np.float32)
+        u = rng.random((rows, n))
+        keys[u < 0.05], keys[(u >= 0.05) & (u < 0.1)] = np.nan, -0.0
+        keys[(u >= 0.1) & (u < 0.15)] = 0.0
+    payload = (rng.integers(-9, 9, (rows, n)).astype(np.int32)
+               if n % 4 == 1 else None)
+    km, pm = _plan_model(keys, payload)
+    kp, pp = bs.bitonic_sort_plain(
+        torch.from_numpy(keys),
+        None if payload is None else torch.from_numpy(payload))
+    assert _same_bits(km, kp.numpy()) and _same_bits(pm, pp.numpy())
+
+
+def test_bitonic_sort_kernel_plan_cuts_the_network_into_owned_runs():
+    for log_m in range(1, 31):
+        ps = bs.passes(log_m)
+        assert [st for _, run in ps for st in run] == bs.network(log_m)
+        for owned, run in ps:
+            assert len(owned) == bs.LOG_CHUNK and owned == sorted(owned)
+            assert set(range(bs.COALESCE_BITS)) <= set(owned)
+            assert {j for _, j in run} <= set(owned)
+        assert all(len(ops) <= bs.MAX_OPS for _, _, ops in bs.plan(log_m))
+        if log_m > bs.LOG_CHUNK:    # the first pass the kernel compiles in
+            assert bs.plan(log_m)[0][1:] == (bs.FIRST_W0, bs.FIRST_OPS)
+    assert len(bs.passes(18)) == 8          # the benchmark's rows of 2^18
 
 
 @pytest.mark.parametrize("keys,want_keys,want_payload", [
@@ -675,9 +817,9 @@ def test_bitonic_sort_rejects_what_it_does_not_take(keys, payload, err):
 
 def test_bitonic_sort_build_takes_its_constants_from_the_wrapper(
         monkeypatch, tmp_path):
-    """nvcc gets the chunk and the CTA size from ops.py as -D flags (the
-    source defines neither), and the entry point's signature is set
-    once."""
+    """nvcc gets the chunk, the register window and the op capacity from
+    ops.py as -D flags (the source defines none of them), and the entry
+    point's signature is set once."""
     import subprocess
     import types
     from repro_torch.kernels import _nvcc
@@ -698,7 +840,7 @@ def test_bitonic_sort_build_takes_its_constants_from_the_wrapper(
     monkeypatch.setattr(bs, "_entry", None)
     fn = bs.load()
     assert bs.load() is fn and len(cmds) == 1
-    for name in ("CHUNK", "THREADS"):
+    for name in ("LOG_CHUNK", "REG_BITS", "MAX_OPS"):
         assert f"-D{name}={getattr(bs, name)}" in cmds[0]
         assert f"#define {name}" not in bs._SOURCE.read_text()
-    assert len(fn.argtypes) == 6
+    assert len(fn.argtypes) == 12
