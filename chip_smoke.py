@@ -13,7 +13,8 @@ Phases, one JSON line each:
             bit-exact; flash_attention within 2e-5 in f32 and 2e-2 in bf16,
             and a bf16 result also within 4e-3 + 2e-2 * |plain| of the
             plain version run in f32; ssm_scan's y and final state within
-            1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes;
+            1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes, and a second
+            call bit-identical;
             bitonic_sort's keys and payloads bit-identical), and its time
             beside its bound, the plain version's and one PyTorch call
             computing the same function, where there is one
@@ -53,6 +54,7 @@ and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero at once.
 """
+import functools
 import gc
 import json
 import statistics
@@ -192,7 +194,7 @@ def _radix_spec():
         return (torch.randint(0, nb, (n,), dtype=torch.int32, device="cuda",
                               generator=gen), nb)
 
-    def compare(out, ref, args, yardstick=False):
+    def compare(out, ref, args, yardstick=False, shape=()):
         """Largest difference of dest and hist (integers: exact)."""
         err = max(int((a.long() - b.long()).abs().max())
                   for a, b in zip(out, ref, strict=True))
@@ -254,7 +256,7 @@ def _attention_spec():
             torch.randn(dims, generator=gen, device="cuda").to(dtype)
             for dims in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
 
-    def compare(out, ref, args, yardstick=False):
+    def compare(out, ref, args, yardstick=False, shape=()):
         """Largest absolute difference from the plain version, and whether
         every element is within tol + tol * |plain| (tol 2e-2 in bf16: the
         plain version rounds the scores to bf16 as the JAX einsum does, the
@@ -337,41 +339,62 @@ SSM_F32_MIX = (F32,) * 4
 
 def _ssm_spec():
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import accuracy
     from repro_torch.kernels.ssm_scan import ops as ssm
     cfg = get_config(SSM_ARCH)
     d_inner, n_state, dt_rank = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    zamba = get_config("zamba2-7b")
 
     def inputs(shape, gen):
-        """dt = softplus(normal), A < 0, and Bm, Cm as column slices of
-        (B, S, dt_rank + 2N) tensors, as the model's x_db gives them."""
-        b, s, d, n, (t_dt, t_x, t_b, t_c) = shape
+        """``accuracy.inputs``: dt = softplus(normal), A = -exp(0.3 normal),
+        or with "long" Mamba's own ranges (each channel's dt around a level
+        drawn log-uniform in [0.001, 0.1], A = -(1..N)); Bm, Cm column
+        slices of one (B, S, dt_rank + 2N) tensor, as the model's x_db
+        gives them."""
+        b, s, d, n, dtypes = shape[:5]
+        kind = "long" if "long" in shape[5:] else "softplus"
+        return accuracy.inputs(b, s, d, n, dtypes, kind, gen=gen,
+                               dt_rank=dt_rank)
 
-        def randn(*dims):
-            return torch.randn(dims, generator=gen, device="cuda")
-        width = dt_rank + 2 * n
-        return (torch.nn.functional.softplus(randn(b, s, d)).to(t_dt),
-                -torch.exp(0.3 * randn(d, n)),
-                randn(b, s, width).to(t_b)[..., dt_rank:dt_rank + n],
-                randn(b, s, width).to(t_c)[..., dt_rank + n:],
-                randn(b, s, d).to(t_x))
-
-    def compare(out, ref, args, yardstick=False):
+    def compare(out, ref, args, yardstick=False, shape=()):
         """Largest absolute difference of y and of the final state, and
         whether every element is within SSM_TOL + SSM_TOL * |plain|: both
-        sides compute in f32 from the same values."""
-        err, ok = 0.0, True
-        for o, r in zip(out, ref, strict=True):
-            diff = (o - r).abs()
-            err = max(err, float(diff.max()))
-            ok = ok and bool((diff <= SSM_TOL + SSM_TOL * r.abs()).all())
-        return err, ok, {}
+        sides compute in f32 from the same values.  A second call must give
+        the same bits (no atomics: the sums run in a fixed order).
+
+        A shape marked "f64" is held to the float64 scan of the same values
+        instead (``accuracy.held_to_f64``): the state within SSM_TOL +
+        SSM_TOL * |exact|, y within SSM_TOL + SSM_TOL * sum_n |h_n C_n|.
+        That is zamba2's width, where y sums 64 products of |h C| up to
+        about 40: where they cancel, two f32 sums in different orders
+        differ by more than SSM_TOL + SSM_TOL * |y|, and the plain version
+        itself lies that far from float64 (PERF.md).  Its errors against
+        the plain version and both sides' against float64 over the usual
+        bound are reported beside."""
+        err = max(float((o - r).abs().max())
+                  for o, r in zip(out, ref, strict=True))
+        worst = max(accuracy.over_bound(o, r)
+                    for o, r in zip(out, ref, strict=True))
+        again = ssm.ssm_scan(*args, return_state=True)
+        same = all(torch.equal(o, a) for o, a in zip(out, again, strict=True))
+        # worst_of_tolerance: the largest |kernel - plain| over its bound
+        info = {"repeat_bit_identical": same, "worst_of_tolerance": worst}
+        if "f64" not in (shape or ())[5:]:
+            return err, worst <= 1 and same, info
+        exact = accuracy.scan_f64(*args)
+        info["kernel_vs_f64"], info["plain_vs_f64"] = (
+            max(accuracy.over_bound(o, e)
+                for o, e in zip(res, exact[:2], strict=True))
+            for res in (out, ref))
+        info["held_to_f64"] = accuracy.held_to_f64(out, exact)
+        return err, info["held_to_f64"] <= 1 and same, info
 
     def bound(shape):
         """Bytes: dt, x, Bm, Cm and A read once, y and the state written
         once.  Operations: B*S*D*N exponentials and 6 f32 FLOPs each
         (dt*A, the state's multiply-add, dt*x*B, the C product's
         multiply-add)."""
-        b, s, d, n, dtypes = shape
+        b, s, d, n, dtypes = shape[:5]
         size = {F32: 4, BF16: 2}
         t_dt, t_x, t_b, t_c = (size[t] for t in dtypes)
         nbytes = (b * s * d * (t_dt + t_x + 4) + b * s * n * (t_b + t_c)
@@ -383,24 +406,34 @@ def _ssm_spec():
             "operations" if by_ops >= by_bytes else "bytes"
 
     def describe(shape):
-        b, s, d, n, dtypes = shape
+        b, s, d, n, dtypes = shape[:5]
         return {"B": b, "S": s, "D": d, "N": n, "dtypes": dict(zip(
             ("dt", "x", "Bm", "Cm"),
-            (str(t).removeprefix("torch.") for t in dtypes), strict=True))}
+            (str(t).removeprefix("torch.") for t in dtypes), strict=True)),
+            **({"long_memory": True} if "long" in shape[5:] else {}),
+            **({"held_to": "float64"} if "f64" in shape[5:] else {})}
 
+    mixes = (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16))
+    timed = (1, 2048, d_inner, n_state, SSM_MODEL_MIX)
+    zamba2 = (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX, "f64")
     return {
         "name": "ssm_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:49",
-        "build": ssm.load,
+        # one library per class of state size (ops.BUILDS)
+        "build": tuple(functools.partial(ssm.load, n) for n in ssm.BUILDS),
         "wrapper": ssm.ssm_scan,
         "plain": ssm.ssm_scan_plain,
         "kwargs": {"return_state": True},       # as every prefill calls it
         "library": None,        # no one PyTorch call computes the scan
         "inputs": inputs, "compare": compare, "bound": bound,
         "tolerance": f"|kernel - plain| <= {SSM_TOL} + {SSM_TOL} * |plain| "
-                     f"for y and the final state, any input dtypes",
+                     f"for y and the final state, any input dtypes; a "
+                     f"second call bit-identical; a check held to float64: "
+                     f"|kernel - exact| <= {SSM_TOL} + {SSM_TOL} * "
+                     f"sum_n |h_n C_n| for y, {SSM_TOL} + {SSM_TOL} * "
+                     f"|exact| for the state",
         "describe": describe,
         # (B, S, D, N, dtypes) of every prefill and forward of the SSM serve
         # phases; the first is the timed one.  serve_ssm_f32's oracle runs a
@@ -414,14 +447,29 @@ def _ssm_spec():
             *((1, s + d, d_inner, n_state, SSM_F32_MIX) for s in F32_PROMPTS
               for d in range(F32_NEW)),
         ),
-        # the JAX sweep (tests/test_kernels.py), then ragged S and D, each
-        # all-f32, with the model's mix, and with another mix
-        "sweep": tuple(
-            (b, s, d, n, mix)
-            for b, s, d, n in ((1, 64, 32, 8), (2, 128, 64, 16),
-                               (1, 96, 48, 4), (1, 77, 100, 16),
-                               (2, 300, 40, 5), (1, 300, 1000, 16))
-            for mix in (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16))),
+        # the serving shape, then zamba2-7b's scan (d_inner 7168, N 64, all
+        # f32) for information, on the inputs of its check below: no path
+        # of the port runs it yet
+        "timed": (timed, zamba2),
+        # the JAX sweep (tests/test_kernels.py), ragged S and D; N that is
+        # no multiple of a channel's lanes, S of 1 and of no whole chunk or
+        # group, D of no whole CTA, B = 2 at the serving width; N up to 64
+        # (the second build); each all-f32, with the model's mix and with
+        # another mix.  Then channels of long memory, the last at zamba2's
+        # width, and zamba2's width with the default inputs, held to float64.
+        "sweep": (
+            *((b, s, d, n, mix)
+              for b, s, d, n in ((1, 64, 32, 8), (2, 128, 64, 16),
+                                 (1, 96, 48, 4), (1, 77, 100, 16),
+                                 (2, 300, 40, 5), (1, 300, 1000, 16),
+                                 (1, 300, 100, 3), (2, 17, 40, 5),
+                                 (1, 1, 70, 12), (2, 300, d_inner, 16),
+                                 (1, 300, 100, 32), (2, 17, 40, 33),
+                                 (1, 77, 100, 64), (2, 1, 70, 64))
+              for mix in mixes),
+            *((1, 2048, 1024, n_state, mix, "long") for mix in mixes),
+            (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX, "long"),
+            zamba2),
     }
 
 
@@ -478,7 +526,7 @@ def _sort_library(keys):
 def _bitonic_spec():
     from repro_torch.kernels.bitonic_sort import ops as bs
 
-    def compare(out, ref, args, yardstick=False):
+    def compare(out, ref, args, yardstick=False, shape=()):
         """Kernel against plain: keys (as bits) and payloads equal.  Both,
         and the library yardstick, against the oracle (_check_sorted)."""
         (ks, ps), (kp, pp) = out, ref
@@ -553,14 +601,17 @@ def phase_build(specs):
     from repro_torch.kernels import _nvcc
     errors = []
 
-    def build(spec):
+    def build(fn):
         try:
-            spec["build"]()
+            fn()
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
+    # a spec's "build" is one callable or a tuple of them (one per library)
+    builds = [fn for s in specs for fn in (
+        s["build"] if isinstance(s["build"], tuple) else (s["build"],))]
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=build, args=(s,)) for s in specs]
+    threads = [threading.Thread(target=build, args=(fn,)) for fn in builds]
     for t in threads:
         t.start()
     for t in threads:
@@ -588,7 +639,7 @@ def phase_kernels(specs, gen):
             out = spec["wrapper"](*args, **kw)
             ref = spec["plain"](*args, **kw)
             sync()
-            err, ok, info = spec["compare"](out, ref, args)
+            err, ok, info = spec["compare"](out, ref, args, shape=shape)
             max_err = max(max_err, err)
             checks.append({**spec["describe"](shape), "main_path": main_path,
                            "max_abs_err": err, **info})
@@ -616,8 +667,16 @@ def phase_kernels(specs, gen):
 
 def _time_kernel(spec, shape, gen, kw) -> dict:
     """The kernel's time at ``shape`` beside its bound, its plain version's
-    and its library yardstick's (first held to the plain version)."""
+    and its library yardstick's, on inputs to which the kernel and the
+    yardstick are first held as a check holds them."""
     args = spec["inputs"](shape, gen)
+    err, ok, _ = spec["compare"](spec["wrapper"](*args, **kw),
+                                 spec["plain"](*args, **kw), args,
+                                 shape=shape)
+    if not ok:
+        raise AssertionError(f"{spec['name']} disagrees with its plain "
+                             f"version at the timed {shape}: max abs err "
+                             f"{err}")
     lib_err = library_ms = None
     if spec["library"] is not None:
         lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),

@@ -7,17 +7,20 @@ goes, launch by launch.
         [--other-ops path/to/ops.py] [--other-source path/to/KERNEL.cu] \\
         [--other-define NAME=VALUE ...] [--shape ...] [--reps 50] [--split]
 
-KERNEL is ``flash_attention`` or ``bitonic_sort``.  The other build is the
-wrapper module ``--other-ops`` (by default this checkout's ``ops.py`` of
-KERNEL; an older checkout's, unpacked with ``git archive`` into an ignored
-directory, holds its kernel source beside it in ``csrc/``), loaded afresh
-under a name of its own with its own library.  ``--other-source`` replaces
-its kernel source, and each ``--other-define NAME=VALUE`` one of its
-top-level constants before it runs (``LOG_CHUNK=12``, ``KV_STAGES=3``,
-``COSTS={...}``), so one wrapper and source can be held against
-themselves built and planned with other constants.  Both outputs are first
-held against this checkout's plain version: ``flash_attention`` within
-its bf16 tolerance, ``bitonic_sort`` bit for bit (keys as bits, payloads).
+KERNEL is ``flash_attention``, ``bitonic_sort`` or ``ssm_scan``.  The
+other build is the wrapper module ``--other-ops`` (by default this
+checkout's ``ops.py`` of KERNEL; an older checkout's, unpacked with ``git
+archive`` into an ignored directory, holds its kernel source beside it in
+``csrc/``), loaded afresh under a name of its own with its own library.
+``--other-source`` replaces its kernel source, and each ``--other-define
+NAME=VALUE`` one of its top-level constants before it runs
+(``LOG_CHUNK=12``, ``KV_STAGES=3``, ``COSTS={...}``, ``LANES=16``), so one
+wrapper and source can be held against themselves built and planned with
+other constants.  Both outputs
+are first held against this checkout's plain version: ``flash_attention``
+within its bf16 tolerance, ``bitonic_sort`` bit for bit (keys as bits,
+payloads), ``ssm_scan``'s y and final state within 1e-5 + 1e-5 * |plain|
+(its ``max_abs_err`` is the largest |kernel - plain| over that bound).
 
 ``--split`` profiles ``--split-calls`` calls of each build with
 ``torch.profiler`` (a synchronise after each) and gives, for each launch
@@ -48,8 +51,10 @@ import torch
 from repro_torch.kernels import _nvcc
 from repro_torch.kernels import bitonic_sort as _bs_pkg
 from repro_torch.kernels import flash_attention as _fa_pkg
+from repro_torch.kernels import ssm_scan as _ssm_pkg
 
-_PACKAGES = {"flash_attention": _fa_pkg, "bitonic_sort": _bs_pkg}
+_PACKAGES = {"flash_attention": _fa_pkg, "bitonic_sort": _bs_pkg,
+             "ssm_scan": _ssm_pkg}
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -83,8 +88,8 @@ def _host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _load_other(kernel: str, ops_path: Path, source: Path | None,
-                defines: list):
+def load_other(kernel: str, ops_path: Path, source: Path | None,
+               defines: list):
     """A fresh module of the wrapper at ``ops_path`` whose library is built
     under its own name (so it never meets this checkout's build).  Each
     NAME=VALUE of ``defines`` replaces the module's top-level assignment
@@ -155,8 +160,33 @@ def _sort_case(shape: str, this):
             {"rows": rows, "n": n, "dtype": dtype})
 
 
+def _scan_case(shape: str, this):
+    """``B,S,D,N[,f32][,long]`` (``accuracy.parse_shape``): the model's
+    dtypes unless ``f32``, softplus inputs unless ``long``
+    (``accuracy.inputs``), the final state returned."""
+    from repro_torch.kernels.ssm_scan import accuracy
+    b, s, d, n, dtypes, kind = accuracy.parse_shape(shape)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = accuracy.inputs(b, s, d, n, dtypes, kind, gen=gen)
+    plain = this.ssm_scan_plain(*args, return_state=True)
+
+    def check(out):
+        """Held if every |kernel - plain| is within its bound; the error
+        given is the largest |kernel - plain| over its bound."""
+        worst = max(accuracy.over_bound(o, r)
+                    for o, r in zip(out, plain, strict=True))
+        return worst <= 1, worst
+    return ((lambda mod: mod.ssm_scan(*args, return_state=True)), check,
+            {"B": b, "S": s, "D": d, "N": n, "dtypes": dict(zip(
+                ("dt", "x", "Bm", "Cm"),
+                (str(t).removeprefix("torch.") for t in dtypes),
+                strict=True)),
+             "long_memory": kind == "long", "return_state": True})
+
+
 _CASES = {"flash_attention": (_attention_case, "1,32,8,2048,128"),
-          "bitonic_sort": (_sort_case, "4,262144,int32")}
+          "bitonic_sort": (_sort_case, "4,262144,int32"),
+          "ssm_scan": (_scan_case, "1,2048,8192,16")}
 
 
 def split(fn, calls: int) -> dict:
@@ -212,7 +242,8 @@ def main(argv=None) -> int:
                     metavar="NAME=VALUE",
                     help="a top-level constant of the other wrapper")
     ap.add_argument("--shape", help="flash_attention: B,H,K,S,hd (bf16, "
-                    "causal); bitonic_sort: rows,n,int32|float32")
+                    "causal); bitonic_sort: rows,n,int32|float32; ssm_scan: "
+                    "B,S,D,N[,f32][,long]")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--split", action="store_true",
                     help="profile each build's launches")
@@ -222,8 +253,8 @@ def main(argv=None) -> int:
         raise SystemExit("ab: no CUDA device is visible")
     pkg = _PACKAGES[args.kernel]
     this = importlib.import_module(f"{pkg.__name__}.ops")
-    other = _load_other(args.kernel, args.other_ops or Path(this.__file__),
-                        args.other_source, args.other_define)
+    other = load_other(args.kernel, args.other_ops or Path(this.__file__),
+                       args.other_source, args.other_define)
     make_case, default_shape = _CASES[args.kernel]
     call, check, shape = make_case(args.shape or default_shape, this)
     runs = {"other": lambda: call(other), "this": lambda: call(this)}

@@ -41,33 +41,47 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 # The kernel is built with these as -D flags, so the checks below use the
 # kernel's own numbers.
 THREADS = 256               # threads per CTA
-LANES = 4                   # threads per channel; each owns N / LANES states
-MAX_STATE = 16              # largest N (falcon-mamba's ssm_state)
+LANES = 8                   # threads per channel; y is summed over them
+                            # LANES steps at a time
 CHUNK = 32                  # time steps staged in shared memory at a time
-GROUP = 4                   # steps computed together, phase by phase
+# One build of the source per class of state size, named by its largest N:
+# each thread owns N / LANES of a channel's states.  A call takes the first
+# build whose N is large enough, so N <= 16 (falcon-mamba's ssm_state)
+# keeps its own build whatever the larger one does; 64 is zamba2's
+# ssm_state.
+BUILDS = (16, 64)
+MAX_STATE = BUILDS[-1]      # largest N
 MAX_BATCH = 65535           # the grid's y dimension
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
-_entry = None               # the library's entry point, once loaded
+_entries: dict = {}         # a build's largest N -> its loaded entry point
 
 
-def load():
-    """Build the kernel at first use and load it; returns the C entry point
-    with its signature set."""
-    global _entry
+def build_for(n_state: int) -> int:
+    """The largest N of the build that takes state size ``n_state``."""
+    for max_state in BUILDS:
+        if 1 <= n_state <= max_state:
+            return max_state
+    raise ValueError(f"state size {n_state}; the kernel takes 1..{MAX_STATE}")
+
+
+def load(n_state: int = 1):
+    """Build the kernel for state size ``n_state`` at first use and load it;
+    returns the C entry point with its signature set."""
+    max_state = build_for(n_state)
     with _load_lock:
-        if _entry is None:
-            lib = load_library("ssm_scan", _SOURCE, defines={
-                "THREADS": THREADS, "LANES": LANES, "MAX_STATE": MAX_STATE,
-                "CHUNK": CHUNK, "GROUP": GROUP})
+        if max_state not in _entries:
+            lib = load_library(f"ssm_scan{max_state}", _SOURCE, defines={
+                "THREADS": THREADS, "LANES": LANES, "MAX_STATE": max_state,
+                "CHUNK": CHUNK})
             fn = lib.ssm_scan_launch
             fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _entry = fn
-        return _entry
+            _entries[max_state] = fn
+        return _entries[max_state]
 
 
 def _check(dt, A, Bm, Cm, x):
@@ -93,8 +107,7 @@ def _check(dt, A, Bm, Cm, x):
             f"shapes do not match: dt {tuple(dt.shape)}, x {tuple(x.shape)},"
             f" A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm "
             f"{tuple(Cm.shape)}")
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"state size {n}; the kernel takes 1..{MAX_STATE}")
+    build_for(n)
     if b > MAX_BATCH:
         raise ValueError(f"batch {b} > {MAX_BATCH}")
 
@@ -130,7 +143,7 @@ def _empty(dt, A, return_state, device):
 
 
 def _launch(dt, A, Bm, Cm, x, return_state: bool):
-    fn = load()
+    fn = load(A.shape[1])
     b, s, d = dt.shape
     y, h = _empty(dt, A, True, dt.device)
     strides = (ctypes.c_longlong * 9)(
@@ -157,3 +170,60 @@ def ssm_scan_plain(dt, A, Bm, Cm, x, *, return_state: bool = False):
     card as the kernel's comparison."""
     _check(dt, A, Bm, Cm, x)
     return ssm_scan_ref(dt, A, Bm, Cm, x, return_state=return_state)
+
+
+def kernel_order(dt, A, Bm, Cm, x, *, max_state=None, lanes=LANES):
+    """The kernel's order of work replayed in plain PyTorch on the inputs'
+    device (the CPU in the tests): y (B,S,D) and the final state (B,D,N),
+    f32.
+
+    It keeps the kernel's layout: S padded with zero steps to whole chunks
+    and D with zero channels to whole CTAs, N with zero states to the
+    build's largest N; lane ``l`` of a channel owns states ``j * LANES +
+    l``, sums its states' share of y for each of a group of LANES steps,
+    and the group goes through the same transpose-reduce, each level
+    keeping the half its lane bit names and adding its partner's copy, so
+    that lane ``l`` ends with y at step ``t + l`` and writes it there.  The
+    state's recurrence is the plain version's, unfused.  ``max_state``
+    names the build (by default the one the wrapper takes); ``lanes`` may
+    differ from the kernel's LANES."""
+    n_max = max_state or build_for(A.shape[1])
+    per_lane, channels = n_max // lanes, THREADS // lanes
+    b, s, d = dt.shape
+    n = A.shape[1]
+    sp, dp = -(-s // CHUNK) * CHUNK, -(-d // channels) * channels
+    dev = dt.device
+
+    def padded(t, *shape):
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        out[tuple(slice(0, k) for k in t.shape)] = t.float()
+        return out
+    dt_, x_ = padded(dt, b, sp, dp), padded(x, b, sp, dp)
+    dx = dt_ * x_
+    # (.., state) -> (.., j, lane): state j * lanes + lane
+    a_ = padded(A, dp, n_max).view(dp, per_lane, lanes)
+    bm = padded(Bm, b, sp, n_max).view(b, sp, per_lane, lanes)
+    cm = padded(Cm, b, sp, n_max).view(b, sp, per_lane, lanes)
+    h = torch.zeros(b, dp, per_lane, lanes, device=dev)
+    y = torch.empty(b, sp, dp, device=dev)
+    lane = torch.arange(lanes, device=dev)
+    for t in range(0, sp, lanes):
+        p = torch.empty(b, dp, lanes, lanes, device=dev)  # (.., lane, step)
+        for u in range(lanes):
+            step = t + u
+            decay = torch.exp(dt_[:, step, :, None, None] * a_)
+            h = decay * h + dx[:, step, :, None, None] * bm[:, step, None]
+            acc = torch.zeros(b, dp, lanes, device=dev)
+            for j in range(per_lane):
+                acc = acc + h[:, :, j] * cm[:, step, None, j]
+            p[..., u] = acc
+        m = lanes
+        while m > 1:
+            o = m // 2
+            up = ((lane & o) != 0)[:, None]
+            lo, hi = p[..., :o], p[..., o:m]
+            send = torch.where(up, lo, hi)
+            p = torch.where(up, hi, lo) + send[:, :, lane ^ o]
+            m = o
+        y[:, t:t + lanes] = p[..., 0].transpose(1, 2)
+    return y[:, :s, :d], h.reshape(b, dp, n_max)[:, :d, :n]

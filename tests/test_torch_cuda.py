@@ -20,6 +20,7 @@ from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
 )
 from repro_torch.kernels.radix_partition.ref import destinations_ref
+from repro_torch.kernels.ssm_scan import accuracy
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 pytestmark = pytest.mark.cuda
@@ -219,9 +220,14 @@ def test_serve_lm_on_the_card(cuda):
     assert radix_partition.launches > before[1]
 
 
-# the sweep of tests/test_kernels.py plus ragged S and D
+# the sweep of tests/test_kernels.py plus ragged S and D; then N that is no
+# multiple of a channel's lanes, S of 1 and of no whole chunk or group, D of
+# no whole CTA, B = 2 at the serving width, and N up to 64 (the second build)
 SSM_SWEEP = [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
-             (1, 77, 100, 16), (2, 300, 40, 5)]
+             (1, 77, 100, 16), (2, 300, 40, 5),
+             (1, 300, 100, 3), (2, 17, 40, 5), (1, 1, 70, 12),
+             (2, 300, 8192, 16), (1, 300, 100, 32), (2, 17, 40, 33),
+             (1, 77, 100, 64), (2, 1, 70, 64)]
 SSM_MIXES = {"f32": (torch.float32,) * 4,
              # dt, x, Bm, Cm as the model gives them
              "model": (torch.float32, torch.bfloat16, torch.bfloat16,
@@ -260,6 +266,38 @@ def test_ssm_scan_kernel_matches_plain(cuda, b, s, d, n, mix):
     torch.testing.assert_close(y, yp, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(ssm_ops.ssm_scan(*args), y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("mix", sorted(SSM_MIXES))
+def test_ssm_scan_kernel_holds_long_memory(cuda, n, mix):
+    """Mamba's own ranges (``accuracy.inputs``, kind "long"): each
+    channel's dt around a level drawn log-uniform in [0.001, 0.1] and A =
+    -(1..N), so that channels remember up to a thousand steps and an error
+    in a decay adds up over them."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    args = accuracy.inputs(1, 2048, 256, n, SSM_MIXES[mix], "long", gen=gen)
+    y, h = ssm_ops.ssm_scan(*args, return_state=True)
+    yp, hp = ssm_ops.ssm_scan_plain(*args, return_state=True)
+    torch.testing.assert_close(y, yp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ssm_ops.ssm_scan(*args), y, atol=0, rtol=0)
+
+
+def test_ssm_scan_kernel_at_zamba2_width_holds_to_float64(cuda):
+    """zamba2-7b's scan, (1, 2048, 7168, 64) all f32, default inputs: y
+    sums 64 products of |h C| up to about 40, and where they cancel two f32
+    sums in different orders differ by more than 1e-5 + 1e-5 * |y|.  Held
+    to the float64 scan of the same values instead: the state within 1e-5 +
+    1e-5 * |exact|, y within 1e-5 + 1e-5 * sum_n |h_n C_n|; and the plain
+    version holds the same bound."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    args = accuracy.inputs(1, 2048, 7168, 64, SSM_MIXES["f32"], gen=gen)
+    exact = accuracy.scan_f64(*args)
+    assert accuracy.held_to_f64(ssm_ops.ssm_scan(*args, return_state=True),
+                                exact) <= 1
+    assert accuracy.held_to_f64(
+        ssm_ops.ssm_scan_plain(*args, return_state=True), exact) <= 1
 
 
 def test_ssm_scan_kernel_at_the_serving_width(cuda):

@@ -33,6 +33,7 @@ from repro_torch.kernels.radix_partition.ops import (
     MAX_BUCKETS, radix_partition, radix_partition_plain,
 )
 from repro_torch.kernels.radix_partition.ref import destinations_ref
+from repro_torch.kernels.ssm_scan import accuracy as ssm_accuracy
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref as ssm_ref
 
@@ -495,9 +496,11 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take(args, err):
 
 def test_ssm_scan_build_takes_its_constants_from_the_wrapper(monkeypatch,
                                                              tmp_path):
-    """nvcc gets the block shape, the largest state size, the chunk and the
-    step group from ops.py as -D flags (the source defines none of them), and the entry
-    point's signature is set once."""
+    """nvcc gets the block shape, the lanes a channel, each build's largest
+    state size and the chunk from ops.py as -D flags (the source defines
+    none of them); each build is made once, with its entry point's
+    signature set, and a state size takes the first build large enough for
+    it."""
     import subprocess
     import types
     from repro_torch.kernels import _nvcc
@@ -515,19 +518,89 @@ def test_ssm_scan_build_takes_its_constants_from_the_wrapper(monkeypatch,
         ssm_scan_launch=types.SimpleNamespace()))
     monkeypatch.setattr(_nvcc, "_loaded", {})
     monkeypatch.setattr(_nvcc, "build_log", {})
-    monkeypatch.setattr(ssm_ops, "_entry", None)
+    monkeypatch.setattr(ssm_ops, "_entries", {})
     fn = ssm_ops.load()
-    assert ssm_ops.load() is fn and len(cmds) == 1
-    for name in ("THREADS", "LANES", "MAX_STATE", "CHUNK", "GROUP"):
-        assert f"-D{name}={getattr(ssm_ops, name)}" in cmds[0]
+    assert ssm_ops.load(16) is fn and len(cmds) == 1
+    assert ssm_ops.load(17) is not fn and ssm_ops.load(64) is ssm_ops.load(33)
+    assert len(cmds) == len(ssm_ops.BUILDS) == 2
+    for cmd, max_state in zip(cmds, ssm_ops.BUILDS, strict=True):
+        assert f"-DMAX_STATE={max_state}" in cmd
+        for name in ("THREADS", "LANES", "CHUNK"):
+            assert f"-D{name}={getattr(ssm_ops, name)}" in cmd
+    for name in ("THREADS", "LANES", "MAX_STATE", "CHUNK"):
         assert f"#define {name}" not in ssm_ops._SOURCE.read_text()
     assert len(fn.argtypes) == 14
+    assert ssm_ops.build_for(16) == ssm_ops.BUILDS[0]
+    assert ssm_ops.build_for(17) == ssm_ops.build_for(64) == ssm_ops.BUILDS[1]
+    for n in (0, ssm_ops.MAX_STATE + 1):
+        with pytest.raises(ValueError):
+            ssm_ops.build_for(n)
+
+
+@pytest.mark.parametrize("b,s,d,n", [
+    (1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),        # the JAX sweep
+    (1, 77, 100, 16), (2, 300, 40, 5), (1, 1, 3, 1),          # ragged
+    (1, 17, 70, 12), (2, 40, 20, 33), (1, 33, 24, 64)])       # N up to 64
+def test_ssm_scan_kernel_order_matches_jax_ref(b, s, d, n):
+    """The kernel's layout and summation order, replayed on the CPU
+    (``ops.kernel_order``: states split over a channel's lanes, y summed
+    through the transpose-reduce, lane l holding step t + l), equals the
+    port's oracle and the JAX oracle at the f32 tolerance, y and final
+    state, for every build a state size can take."""
+    t = _ssm_inputs(b, s, d, n, seed=s + n)
+    yr, hr = ssm_ref(*_ssm_args(t), return_state=True)
+    yj = np.asarray(jax.jit(jax_ssm_ref)(*_jax_ssm(t)))
+    builds = [(m, ssm_ops.LANES) for m in ssm_ops.BUILDS if n <= m]
+    builds += [(builds[0][0], lanes) for lanes in (4, 16)
+               if builds[0][0] % lanes == 0 and lanes != ssm_ops.LANES]
+    for max_state, lanes in builds:
+        y, h = ssm_ops.kernel_order(*_ssm_args(t), max_state=max_state,
+                                    lanes=lanes)
+        assert y.shape == (b, s, d) and h.shape == (b, d, n)
+        np.testing.assert_allclose(y.numpy(), yr.numpy(), **SSM_TOL)
+        np.testing.assert_allclose(y.numpy(), yj, **SSM_TOL)
+        np.testing.assert_allclose(h.numpy(), hr.numpy(), **SSM_TOL)
+
+
+@pytest.mark.parametrize("kind", ssm_accuracy.KINDS)
+@pytest.mark.parametrize("b,s,d,n", [(1, 64, 32, 8), (2, 77, 40, 64)])
+def test_ssm_scan_float64_witness_matches_the_oracles(kind, b, s, d, n):
+    """The checks' inputs and their float64 witness on the CPU: the inputs
+    have the kernel's shapes and dtypes, Bm and Cm column slices of one
+    x_db; the float64 scan agrees with the port's oracle and the JAX
+    oracle at the f32 tolerance; and the oracle holds the bound that the
+    check at zamba2's width puts on the kernel (``held_to_f64``)."""
+    gen = torch.Generator().manual_seed(s)
+    args = ssm_accuracy.inputs(b, s, d, n, ssm_accuracy.MODEL_MIX, kind,
+                               gen=gen, dt_rank=7)
+    dt, A, bm, cm, x = args
+    assert [t.dtype for t in (dt, x, bm, cm)] == \
+        list(ssm_accuracy.MODEL_MIX)
+    assert A.shape == (d, n) and bm.shape == cm.shape == (b, s, n)
+    assert bm.stride(1) == cm.stride(1) == 7 + 2 * n
+    if kind == "long":
+        assert torch.equal(A[0], -torch.arange(1.0, n + 1))
+    y64, h64, size = ssm_accuracy.scan_f64(*args)
+    assert y64.dtype == torch.float64 and size.shape == y64.shape
+    assert bool((size >= y64.abs()).all())
+    plain = ssm_ref(*args, return_state=True)
+    np.testing.assert_allclose(y64.numpy(), plain[0].numpy(), **SSM_TOL)
+    np.testing.assert_allclose(h64.numpy(), plain[1].numpy(), **SSM_TOL)
+    yj = jax.jit(jax_ssm_ref)(*(jnp.asarray(t.float().numpy())
+                                for t in args))
+    np.testing.assert_allclose(y64.numpy(), np.asarray(yj), **SSM_TOL)
+    assert ssm_accuracy.held_to_f64(plain, (y64, h64, size)) <= 1
+    assert ssm_accuracy.over_bound(plain[0], y64) <= 1
+    assert ssm_accuracy.parse_shape(f"{b},{s},{d},{n},f32,long") == \
+        (b, s, d, n, ssm_accuracy.F32_MIX, "long")
 
 
 @pytest.mark.parametrize("module,argv", [
     ("repro_torch.kernels.ab", ["bitonic_sort", "--other-define",
                                 "REG_BITS=5"]),
     ("repro_torch.kernels.bitonic_sort.op_costs", []),
+    ("repro_torch.kernels.ab", ["ssm_scan"]),
+    ("repro_torch.kernels.ssm_scan.accuracy", ["--shape", "1,64,32,8"]),
 ])
 def test_bitonic_sort_measurement_scripts_need_a_card(module, argv):
     """The timing scripts refuse to run without CUDA (no CPU number is ever
