@@ -10,9 +10,10 @@ Phases, one JSON line each:
             nvcc per source, all started together)
   kernels   each kernel against its plain version at every shape the
             main-path phases give it and at a sweep of sizes (radix_partition
-            bit-exact; flash_attention within 2e-5 in f32 and 2e-2 in bf16,
-            and a bf16 result also within 4e-3 + 2e-2 * |plain| of the
-            plain version run in f32; ssm_scan's y and final state within
+            bit-exact, ids outside [0, B) left at dest -1 and uncounted, a
+            second call bit-identical; flash_attention within 2e-5 in f32
+            and 2e-2 in bf16, and a bf16 result also within 4e-3 + 2e-2 *
+            |plain| of the plain version run in f32; ssm_scan's y and final state within
             1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes, and a second
             call bit-identical;
             bitonic_sort's keys and payloads bit-identical), and its time
@@ -128,8 +129,7 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-RADIX_KERNELS = ("count_kernel", "scan_tiles_kernel", "scan_hist_kernel",
-                 "rank_kernel")
+RADIX_KERNELS = ("radix_hist_", "radix_rank_")
 # device-kernel names of each port kernel, as the profiler reports them
 KERNEL_NAMES = {"radix_partition": RADIX_KERNELS,
                 "flash_attention": ("flash_attention_",),
@@ -187,24 +187,74 @@ def _radix_library(b: torch.Tensor, n_buckets: int):
 
 
 def _radix_spec():
+    from repro_torch.kernels.ab import radix_buckets
     from repro_torch.kernels.radix_partition import ops as radix
+    tile = radix.TILE
 
     def inputs(shape, gen):
-        n, nb = shape
-        return (torch.randint(0, nb, (n,), dtype=torch.int32, device="cuda",
-                              generator=gen), nb)
+        """(n, B[, kind]): ids uniform in [0, B) unless ``kind`` says
+        ``sorted`` (long runs), ``hot`` (90 % of the rows in bucket 0),
+        ``one`` (every row in bucket B - 1), ``oob`` (every fifth row an id
+        outside [0, B)) or ``unaligned`` (the view ``base[1:]``, 4 bytes past
+        a 16-byte boundary)."""
+        n, nb = shape[:2]
+        kind = shape[2] if len(shape) > 2 else "uniform"
+        if kind == "one":
+            return torch.full((n,), nb - 1, dtype=torch.int32,
+                              device="cuda"), nb
+        if kind == "unaligned":
+            return radix_buckets(n + 1, nb, "uniform", gen)[1:], nb
+        b = radix_buckets(n, nb, "uniform" if kind == "oob" else kind, gen)
+        if kind == "oob":
+            bad = torch.tensor([-1, nb, nb + 7, -2 ** 31, 2 ** 31 - 1],
+                               dtype=torch.int32, device="cuda")
+            rows = torch.arange(0, n, 5, device="cuda")
+            b[rows] = bad[rows % len(bad)]
+        return b, nb
+
+    def plain(b, nb):
+        """The plain version; where ids lie outside [0, B), the plain version
+        over the other rows, and dest -1 for those (the kernel's contract:
+        neither counted nor placed)."""
+        ok = (b >= 0) & (b < nb)
+        if bool(ok.all()):
+            return radix.radix_partition_plain(b, nb)
+        dest = torch.full_like(b, -1)
+        d, h = radix.radix_partition_plain(b[ok].contiguous(), nb)
+        dest[ok] = d
+        return dest, h
 
     def compare(out, ref, args, yardstick=False, shape=()):
-        """Largest difference of dest and hist (integers: exact)."""
+        """Largest difference of dest and hist (integers: exact); the kernel
+        must also give the same bits on a second call."""
         err = max(int((a.long() - b.long()).abs().max())
                   for a, b in zip(out, ref, strict=True))
-        return err, err == 0, {}
+        if yardstick:
+            return err, err == 0, {}
+        again = radix.radix_partition(*args)
+        same = all(torch.equal(o, a) for o, a in zip(out, again, strict=True))
+        return err, err == 0 and same, {"repeat_bit_identical": same}
 
     def bound(shape):
-        n, nb = shape
+        n, nb = shape[:2]
         nbytes = 4 * n + 4 * n + 4 * nb     # read buckets, write dest + hist
         return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
+    def describe(shape):
+        return {"n": shape[0], "buckets": shape[1],
+                **({"ids": shape[2]} if len(shape) > 2 else {})}
+
+    main_shapes = (
+        # dist: one rank's shuffle pack, P + 1 buckets
+        (capacity(DIST_ROWS, N_RANKS), N_RANKS + 1),
+        # pipeline and serve: each ETL task's pack on half the pool
+        (capacity(PIPE_ROWS, N_RANKS // 2), N_RANKS // 2 + 1),
+        # shuffle: radix_bucket over the whole input
+        (DIST_ROWS, SHUFFLE_BUCKETS),
+    )
+    # bucket counts on each side of the kernel's edges: past 8 a warp scans
+    # two buckets' counters, past SMALL_BUCKETS the strategy changes
+    edges = (4, 5, 8, 9, radix.SMALL_BUCKETS, radix.SMALL_BUCKETS + 1)
     return {
         "name": "radix_partition",
         "route": "cuda",
@@ -213,23 +263,31 @@ def _radix_spec():
         "replaces": "src/repro/kernels/radix_partition/radix_partition.py:49",
         "build": radix.load,
         "wrapper": radix.radix_partition,
-        "plain": radix.radix_partition_plain,
+        "plain": plain,
         "library": _radix_library,
         "inputs": inputs, "compare": compare, "bound": bound,
-        "tolerance": "bit-exact",
-        "describe": lambda shape: {"n": shape[0], "buckets": shape[1]},
+        "tolerance": "bit-exact; ids outside [0, B) get dest -1 and are not "
+                     "counted; a second call bit-identical",
+        "describe": describe,
         # every (n, B) the main-path phases launch the kernel at; the first
-        # is the timed one
-        "main_shapes": (
-            # dist: one rank's shuffle pack, P + 1 buckets
-            (capacity(DIST_ROWS, N_RANKS), N_RANKS + 1),
-            # pipeline and serve: each ETL task's pack on half the pool
-            (capacity(PIPE_ROWS, N_RANKS // 2), N_RANKS // 2 + 1),
-            # shuffle: radix_bucket over the whole input
-            (DIST_ROWS, SHUFFLE_BUCKETS),
+        # is the summary line's, and all three are timed
+        "main_shapes": main_shapes,
+        "timed": main_shapes,
+        "sweep": (
+            *((n, nb) for n in (1, 1000, 4097, DIST_ROWS)
+              for nb in (1, 2, 5, 65, radix.MAX_BUCKETS)),
+            # the timed shape's ids in long runs, with a hot bucket, and in
+            # one bucket; ids out of range; an unaligned view
+            *((capacity(DIST_ROWS, N_RANKS), N_RANKS + 1, kind)
+              for kind in ("sorted", "hot", "one", "oob", "unaligned")),
+            # tile edges, n no multiple of 4, at each strategy edge
+            *((n, nb, kind) for n in (tile - 1, tile + 1, 2 * tile + 3)
+              for nb in edges for kind in ("uniform", "unaligned")),
+            *((2 * tile + 3, nb, "oob") for nb in edges),
+            (1 << 20, 65, "oob"), (1 << 20, radix.MAX_BUCKETS, "oob"),
+            (DIST_ROWS, radix.MAX_BUCKETS, "hot"),
+            (DIST_ROWS - 1, SHUFFLE_BUCKETS, "unaligned"),
         ),
-        "sweep": tuple((n, nb) for n in (1, 1000, 4097, DIST_ROWS)
-                       for nb in (1, 2, 5, 65, radix.MAX_BUCKETS)),
     }
 
 

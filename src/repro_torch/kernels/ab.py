@@ -5,13 +5,15 @@ goes, launch by launch.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab KERNEL \\
         [--other-ops path/to/ops.py] [--other-source path/to/KERNEL.cu] \\
-        [--other-define NAME=VALUE ...] [--shape ...] [--reps 50] [--split]
+        [--other-define NAME=VALUE ...] [--shape ...] [--reps 50] [--split] \\
+        [--probe]
 
-KERNEL is ``flash_attention``, ``bitonic_sort`` or ``ssm_scan``.  The
-other build is the wrapper module ``--other-ops`` (by default this
-checkout's ``ops.py`` of KERNEL; an older checkout's, unpacked with ``git
-archive`` into an ignored directory, holds its kernel source beside it in
-``csrc/``), loaded afresh under a name of its own with its own library.
+KERNEL is ``flash_attention``, ``bitonic_sort``, ``ssm_scan`` or
+``radix_partition``.  The other build is the wrapper module
+``--other-ops`` (by default this checkout's ``ops.py`` of KERNEL; an older
+checkout's, unpacked with ``git archive`` into an ignored directory, holds
+its kernel source beside it in ``csrc/``), loaded afresh under a name of
+its own with its own library.
 ``--other-source`` replaces its kernel source, and each ``--other-define
 NAME=VALUE`` one of its top-level constants before it runs
 (``LOG_CHUNK=12``, ``KV_STAGES=3``, ``COSTS={...}``, ``LANES=16``), so one
@@ -20,7 +22,8 @@ other constants.  Both outputs
 are first held against this checkout's plain version: ``flash_attention``
 within its bf16 tolerance, ``bitonic_sort`` bit for bit (keys as bits,
 payloads), ``ssm_scan``'s y and final state within 1e-5 + 1e-5 * |plain|
-(its ``max_abs_err`` is the largest |kernel - plain| over that bound).
+(its ``max_abs_err`` is the largest |kernel - plain| over that bound),
+``radix_partition``'s destinations and histogram bit for bit.
 
 ``--split`` profiles ``--split-calls`` calls of each build with
 ``torch.profiler`` (a synchronise after each) and gives, for each launch
@@ -28,6 +31,11 @@ of one call in order, its device kernel's name and median time, and the
 median gap before it (negative where a launch overlaps the one before).
 The profiler's own launch overhead widens the gaps, so the turns'
 CUDA-event times are the calls' times.
+
+With ``--probe`` the other build is timed even where it disagrees with
+the plain version (a probe: a build with a part taken out on purpose, to
+see what the part costs); ``agrees`` in the output says which builds
+agreed, and this checkout's build must agree in any case.
 
 Prints one JSON line: each turn's median time in ms over ``--reps`` calls
 (CUDA events, after a warm-up), each build's host time a call (enqueueing
@@ -51,10 +59,11 @@ import torch
 from repro_torch.kernels import _nvcc
 from repro_torch.kernels import bitonic_sort as _bs_pkg
 from repro_torch.kernels import flash_attention as _fa_pkg
+from repro_torch.kernels import radix_partition as _radix_pkg
 from repro_torch.kernels import ssm_scan as _ssm_pkg
 
 _PACKAGES = {"flash_attention": _fa_pkg, "bitonic_sort": _bs_pkg,
-             "ssm_scan": _ssm_pkg}
+             "ssm_scan": _ssm_pkg, "radix_partition": _radix_pkg}
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -184,9 +193,43 @@ def _scan_case(shape: str, this):
              "long_memory": kind == "long", "return_state": True})
 
 
+def radix_buckets(n: int, n_buckets: int, dist: str, gen) -> torch.Tensor:
+    """(n,) int32 bucket ids on the card: ``uniform`` in [0, n_buckets),
+    the same ``sorted`` ascending (long runs of one bucket), or ``hot``:
+    bucket 0 for 90 % of the rows and the rest uniform."""
+    b = torch.randint(0, n_buckets, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    if dist == "sorted":
+        return torch.sort(b).values
+    if dist == "hot":
+        cold = torch.rand(n, generator=gen, device="cuda") >= 0.9
+        return torch.where(cold, b, 0)
+    if dist != "uniform":
+        raise SystemExit(f"ab: radix_partition inputs are uniform, sorted "
+                         f"or hot, not {dist}")
+    return b
+
+
+def _radix_case(shape: str, this):
+    n, nb, *rest = shape.split(",")
+    n, nb, dist = int(n), int(nb), (rest or ["uniform"])[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = radix_buckets(n, nb, dist, gen)
+    dp, hp = this.radix_partition_plain(b, nb)
+
+    def check(out):
+        d, h = out
+        err = max(int((d.long() - dp.long()).abs().max()),
+                  int((h.long() - hp.long()).abs().max()))
+        return torch.equal(d, dp) and torch.equal(h, hp), err
+    return ((lambda mod: mod.radix_partition(b, nb)), check,
+            {"n": n, "buckets": nb, "dist": dist})
+
+
 _CASES = {"flash_attention": (_attention_case, "1,32,8,2048,128"),
           "bitonic_sort": (_sort_case, "4,262144,int32"),
-          "ssm_scan": (_scan_case, "1,2048,8192,16")}
+          "ssm_scan": (_scan_case, "1,2048,8192,16"),
+          "radix_partition": (_radix_case, "17500064,5")}
 
 
 def split(fn, calls: int) -> dict:
@@ -243,11 +286,16 @@ def main(argv=None) -> int:
                     help="a top-level constant of the other wrapper")
     ap.add_argument("--shape", help="flash_attention: B,H,K,S,hd (bf16, "
                     "causal); bitonic_sort: rows,n,int32|float32; ssm_scan: "
-                    "B,S,D,N[,f32][,long]")
+                    "B,S,D,N[,f32][,long]; radix_partition: "
+                    "n,B[,uniform|sorted|hot]")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--split", action="store_true",
                     help="profile each build's launches")
     ap.add_argument("--split-calls", type=int, default=10)
+    ap.add_argument("--probe", action="store_true",
+                    help="time the other build even where it disagrees "
+                    "with the plain version: a probe with a part taken out "
+                    "on purpose, to see what that part costs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab: no CUDA device is visible")
@@ -258,11 +306,11 @@ def main(argv=None) -> int:
     make_case, default_shape = _CASES[args.kernel]
     call, check, shape = make_case(args.shape or default_shape, this)
     runs = {"other": lambda: call(other), "this": lambda: call(this)}
-    errs = {}
+    errs, agrees = {}, {}
     for name, fn in runs.items():
-        ok, errs[name] = check(fn())
+        agrees[name], errs[name] = check(fn())
         torch.cuda.synchronize()
-        if not ok:
+        if not agrees[name] and not (args.probe and name == "other"):
             raise AssertionError(f"{name} disagrees with the plain version: "
                                  f"max abs err {errs[name]}")
     turns = [[name, _median_ms(runs[name], args.reps)]
@@ -278,7 +326,7 @@ def main(argv=None) -> int:
                       "other_source": str(args.other_source or "its own"),
                       "other_defines": args.other_define, "shape": shape,
                       "turns_ms": turns, "host_ms": host,
-                      "max_abs_err": errs,
+                      "max_abs_err": errs, "agrees": agrees,
                       "split": splits,
                       # registers, stack and spills of each build made here
                       "ptxas": {name: [line.split("info    : ")[-1]

@@ -5,9 +5,13 @@ which replaces the Pallas TPU kernel
 ``src/repro/kernels/radix_partition/radix_partition.py::radix_partition_kernel``
 (wrapper ``ops.py::radix_partition``).  The function is bound by memory
 traffic: it must read the (n,) int32 buckets and write the (n,) int32
-destinations, 8 bytes a row, against almost no arithmetic.  The kernel's
-count / scan / rank passes read the buckets twice (12 bytes a row) and keep
-the per-tile counts, B ints per 4096 rows, out of the way of the rows.
+destinations, 8 bytes a row, against almost no arithmetic.  The kernel is
+two launches that read the buckets twice (12 bytes a row): a histogram
+pass that counts each CTA's chunk of tiles, and a ranking pass in which
+each CTA starts its chunk from the earlier chunks' counts (up to
+SMALL_BUCKETS buckets), or chains the tiles' counts with a decoupled
+look-back (more buckets; its scratch is zeroed by one memset on the
+caller's stream).
 
 A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
 through :func:`radix_partition_plain`, the same function in plain PyTorch.
@@ -25,8 +29,10 @@ from repro_torch.kernels.radix_partition.ref import destinations_ref
 
 # The kernel is built with these as -D flags, so the scratch sized here and
 # the checks below use the kernel's own numbers.
-MAX_BUCKETS = 1024          # shared-memory counters per CTA
-TILE = 4096                 # rows per CTA
+MAX_BUCKETS = 1024          # the largest bucket count
+SMALL_BUCKETS = 16          # up to this many buckets, per-thread counters
+TILE = 4096                 # rows a CTA ranks
+THREADS = 256               # threads a CTA
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "radix_partition.cu"
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -40,9 +46,10 @@ def load():
     with _load_lock:
         if _entry is None:
             lib = load_library("radix_partition", _SOURCE, defines={
-                "TILE": TILE, "MAX_BUCKETS": MAX_BUCKETS})
+                "TILE": TILE, "THREADS": THREADS,
+                "SMALL_BUCKETS": SMALL_BUCKETS, "MAX_BUCKETS": MAX_BUCKETS})
             fn = lib.radix_partition_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _entry = fn
@@ -68,7 +75,9 @@ def _check(buckets: torch.Tensor, n_buckets: int):
 def radix_partition(buckets: torch.Tensor, n_buckets: int):
     """buckets (n,) int32 in [0, n_buckets) -> (dest (n,) int32,
     hist (n_buckets,) int32): row i belongs at position dest[i] of the
-    bucket-major layout, rows of one bucket in their original order."""
+    bucket-major layout, rows of one bucket in their original order.  On
+    the card a row whose id lies outside [0, n_buckets) gets dest -1 and
+    is not counted; the plain version rejects such ids."""
     _check(buckets, n_buckets)
     n = buckets.shape[0]
     dev = buckets.device
@@ -90,19 +99,37 @@ def radix_partition(buckets: torch.Tensor, n_buckets: int):
 radix_partition.launches = 0     # kernel launches since the last reset
 
 
+def scratch_words(n: int, n_buckets: int) -> int:
+    """int32 words of the kernel's scratch, enough for either way it ranks:
+    up to SMALL_BUCKETS buckets it keeps one count per (bucket, CTA), at
+    most one CTA a tile; above, two words for each (tile, bucket) look-back
+    word, the histogram's sums and a ticket.  A view may start up to 3 rows
+    past a 16-byte boundary, which may add a tile."""
+    return 2 * n_buckets * -(-(n + 3) // TILE) + n_buckets + 1
+
+
 def _launch(buckets: torch.Tensor, n_buckets: int):
     fn = load()
     n = buckets.shape[0]
-    n_tiles = -(-n // TILE)
     dev = buckets.device
-    dest = torch.empty(n, dtype=torch.int32, device=dev)
-    hist = torch.empty(n_buckets, dtype=torch.int32, device=dev)
-    counts = torch.empty(n_buckets * n_tiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty(n_buckets, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(buckets.data_ptr(), dest.data_ptr(), hist.data_ptr(),
-                 counts.data_ptr(), offsets.data_ptr(), n, n_buckets, stream)
+    ptr = buckets.data_ptr()
+    if ptr % 4:
+        raise ValueError("buckets must be 4-byte aligned")
+    # dest lies at the same address modulo 16 as buckets, so the kernel's
+    # 16-byte groups of rows line up in both (a view such as b[1:] starts
+    # 4, 8 or 12 bytes past a boundary); hist shares its allocation
+    buf = torch.empty(n + 3 + n_buckets, dtype=torch.int32, device=dev)
+    shift = (ptr - buf.data_ptr()) % 16 // 4
+    dest, hist = buf[shift:shift + n], buf[n + 3:]
+    scratch = torch.empty(scratch_words(n, n_buckets), dtype=torch.int32,
+                          device=dev)
+    args = (ptr, dest.data_ptr(), hist.data_ptr(), scratch.data_ptr(), n,
+            n_buckets, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"radix_partition kernel launch failed: CUDA "
                            f"error {err}")

@@ -17,7 +17,7 @@ from repro_torch.kernels.bitonic_sort import ops as bs
 from repro_torch.kernels.bitonic_sort.ref import sort_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
-    MAX_BUCKETS, radix_partition, radix_partition_plain,
+    MAX_BUCKETS, SMALL_BUCKETS, TILE, radix_partition, radix_partition_plain,
 )
 from repro_torch.kernels.radix_partition.ref import destinations_ref
 from repro_torch.kernels.ssm_scan import accuracy
@@ -52,6 +52,91 @@ def test_radix_partition_kernel_is_stable(cuda):
     b = torch.tensor([1, 0, 1, 0, 1], dtype=torch.int32, device=cuda)
     d, h = radix_partition(b, 2)
     assert d.tolist() == [2, 0, 3, 1, 4] and h.tolist() == [2, 3]
+
+
+def _radix_ids(cuda, n, buckets, dist, seed=0):
+    """uniform ids, the same sorted (long runs), 90 % of the rows in one hot
+    bucket, or every row in one bucket."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, buckets, n, dtype=np.int32)
+    if dist == "sorted":
+        b = np.sort(b)
+    elif dist == "hot":
+        b = np.where(rng.random(n) < 0.9, buckets // 2, b).astype(np.int32)
+    elif dist == "one":
+        b = np.full(n, buckets - 1, np.int32)
+    return torch.from_numpy(b).to(cuda)
+
+
+def _radix_expected(b, buckets):
+    """The plain version over the rows whose id lies in [0, buckets); the
+    others get dest -1 and are not counted."""
+    ok = (b >= 0) & (b < buckets)
+    dest = torch.full_like(b, -1)
+    d, h = radix_partition_plain(b[ok].contiguous(), buckets)
+    dest[ok] = d
+    return dest, h
+
+
+# each strategy's edges: from B = 8 / 9 on, a warp of the small strategy
+# scans more than one bucket; SMALL_BUCKETS / SMALL_BUCKETS + 1 change the
+# strategy
+RADIX_STRATEGY_B = [2, 3, 4, 5, 8, 9, SMALL_BUCKETS, SMALL_BUCKETS + 1, 65,
+                    MAX_BUCKETS]
+RADIX_EDGE_N = [3, 1001, TILE - 1, TILE, TILE + 1, 2 * TILE + 3]
+
+
+@pytest.mark.parametrize("n", RADIX_EDGE_N)
+@pytest.mark.parametrize("buckets", RADIX_STRATEGY_B)
+@pytest.mark.parametrize("dist", ["uniform", "sorted", "hot", "one"])
+def test_radix_partition_kernel_across_strategies_and_tiles(cuda, n, buckets,
+                                                            dist):
+    b = _radix_ids(cuda, n, buckets, dist, seed=n + buckets)
+    d, h = radix_partition(b, buckets)
+    dp, hp = radix_partition_plain(b, buckets)
+    assert torch.equal(d, dp) and torch.equal(h, hp)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("buckets", [5, SMALL_BUCKETS + 1])
+def test_radix_partition_kernel_reads_unaligned_views(cuda, offset, buckets):
+    """A view 4, 8 or 12 bytes past a 16-byte boundary is read and written
+    around its 16-byte body, never as if aligned; its storage is left as it
+    was."""
+    n = 2 * TILE + 5
+    base = _radix_ids(cuda, n + 8, buckets, "uniform", seed=offset)
+    keep = base.clone()
+    view = base[offset:offset + n]
+    assert view.data_ptr() % 16 == 4 * offset % 16
+    d, h = radix_partition(view, buckets)
+    dp, hp = radix_partition_plain(view, buckets)
+    assert torch.equal(d, dp) and torch.equal(h, hp)
+    assert torch.equal(base, keep)
+
+
+@pytest.mark.parametrize("buckets", [5, SMALL_BUCKETS + 1, MAX_BUCKETS])
+def test_radix_partition_kernel_leaves_out_of_range_ids(cuda, buckets):
+    """Ids outside [0, B) are neither counted nor placed: dest -1."""
+    n = 3 * TILE + 7
+    b = _radix_ids(cuda, n, buckets, "uniform", seed=buckets)
+    bad = torch.tensor([-1, buckets, buckets + 7, -2 ** 31, 2 ** 31 - 1],
+                       dtype=torch.int32, device=cuda)
+    rows = torch.arange(0, n, 5, device=cuda)
+    b[rows] = bad[rows % len(bad)]
+    d, h = radix_partition(b, buckets)
+    de, he = _radix_expected(b, buckets)
+    assert torch.equal(d, de) and torch.equal(h, he)
+    assert int(h.sum()) == n - len(rows)
+
+
+@pytest.mark.parametrize("n,buckets", [(1 << 22, 5), (1 << 21, MAX_BUCKETS)])
+def test_radix_partition_kernel_repeats_bit_identical(cuda, n, buckets):
+    b = _radix_ids(cuda, n, buckets, "hot", seed=n)
+    first = radix_partition(b, buckets)
+    again = radix_partition(b, buckets)
+    assert all(torch.equal(x, y) for x, y in zip(first, again, strict=True))
+    dp, hp = radix_partition_plain(b, buckets)
+    assert torch.equal(first[0], dp) and torch.equal(first[1], hp)
 
 
 def test_dist_ops_on_logical_cuda_ranks(cuda):

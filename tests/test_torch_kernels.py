@@ -30,7 +30,7 @@ from repro_torch.kernels.bitonic_sort import ops as bs
 from repro_torch.kernels.bitonic_sort.ref import sort_ref as torch_sort_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.radix_partition.ops import (
-    MAX_BUCKETS, radix_partition, radix_partition_plain,
+    MAX_BUCKETS, SMALL_BUCKETS, TILE, radix_partition, radix_partition_plain,
 )
 from repro_torch.kernels.radix_partition.ref import destinations_ref
 from repro_torch.kernels.ssm_scan import accuracy as ssm_accuracy
@@ -68,6 +68,59 @@ def test_radix_partition_sweep_matches_jax(n, buckets, block):
                            interpret=True)
         np.testing.assert_array_equal(dest, np.asarray(jd))
         np.testing.assert_array_equal(hist, np.asarray(jh))
+
+
+def _radix_inputs(n, n_buckets, dist, seed=0):
+    """uniform ids, the same sorted (long runs), or 90 % of the rows in one
+    hot bucket, as the card's tests and ``ab radix_partition`` draw them."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, n_buckets, n, dtype=np.int32)
+    if dist == "sorted":
+        return np.sort(b)
+    if dist == "hot":
+        return np.where(rng.random(n) < 0.9, n_buckets // 2, b).astype(
+            np.int32)
+    return b
+
+
+@pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 2 * TILE + 3])
+@pytest.mark.parametrize("buckets,dist", [
+    (SMALL_BUCKETS, "uniform"), (SMALL_BUCKETS + 1, "sorted"), (5, "hot")])
+def test_radix_partition_at_tile_boundaries_matches_jax_kernel(n, buckets,
+                                                               dist):
+    """The wrapper at the kernel's tile edges and on both sides of its
+    register/shared-memory boundary against the JAX kernel in interpret
+    mode (whose blocks do not line up with the tiles)."""
+    b = _radix_inputs(n, buckets, dist, seed=n)
+    dest, hist = _port(b, buckets)
+    jd, jh = jax_radix(jnp.asarray(b), buckets, block=1024, interpret=True)
+    np.testing.assert_array_equal(dest, np.asarray(jd))
+    np.testing.assert_array_equal(hist, np.asarray(jh))
+
+
+def test_radix_partition_reads_an_unaligned_view_like_jax():
+    """A view one row into its storage (the card's kernel reads it from a
+    4-byte offset) gives what the JAX kernel gives for the same rows."""
+    base = torch.from_numpy(_radix_inputs(TILE + 6, 7, "uniform", seed=9))
+    view = base[1:TILE + 2]
+    assert view.is_contiguous() and view.storage_offset() == 1
+    d, h = radix_partition(view, 7)
+    jd, jh = jax_radix(jnp.asarray(view.numpy()), 7, block=1024,
+                       interpret=True)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+
+
+def test_radix_partition_scratch_covers_every_tile():
+    """The scratch holds two words per (tile, bucket) for the tiles of n
+    rows starting up to 3 rows past a 16-byte boundary, then B sums and the
+    ticket (the look-back's layout; the per-chunk counts of up to
+    SMALL_BUCKETS buckets need at most B words a tile)."""
+    from repro_torch.kernels.radix_partition.ops import scratch_words
+    for n, b in ((1, 2), (TILE - 3, 5), (TILE - 2, 5), (35_000_000, 1024)):
+        tiles = -(-(n + 3) // TILE)
+        assert scratch_words(n, b) == 2 * b * tiles + b + 1
+    assert -(-(TILE - 2 + 3) // TILE) == 2      # a shifted view adds a tile
 
 
 def test_radix_partition_is_stable_like_jax():
@@ -155,8 +208,10 @@ def test_kernel_build_names_a_missing_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_build_takes_its_constants_from_the_wrapper(monkeypatch,
                                                            tmp_path):
-    """nvcc gets TILE and MAX_BUCKETS from ops.py as -D flags (the source
-    defines neither), and the entry point's signature is set once."""
+    """nvcc gets TILE, THREADS, SMALL_BUCKETS and MAX_BUCKETS from ops.py as
+    -D flags (the source defines none of them), and the entry point's
+    signature (buckets, dest, hist, scratch, n, B, stream) is set once."""
+    import ctypes
     import subprocess
     import types
     from repro_torch.kernels import _nvcc
@@ -178,11 +233,13 @@ def test_kernel_build_takes_its_constants_from_the_wrapper(monkeypatch,
     monkeypatch.setattr(ops, "_entry", None)
     fn = ops.load()
     assert ops.load() is fn and len(cmds) == 1
-    assert f"-DTILE={ops.TILE}" in cmds[0]
-    assert f"-DMAX_BUCKETS={ops.MAX_BUCKETS}" in cmds[0]
-    assert len(fn.argtypes) == 8
+    for name in ("TILE", "THREADS", "SMALL_BUCKETS", "MAX_BUCKETS"):
+        assert f"-D{name}={getattr(ops, name)}" in cmds[0]
+    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     src = ops._SOURCE.read_text()
-    assert "#define TILE" not in src and "#define MAX_BUCKETS" not in src
+    for name in ("TILE", "THREADS", "SMALL_BUCKETS", "MAX_BUCKETS"):
+        assert f"#define {name}" not in src
 
 
 # ---------------------------------------------------------------------------
@@ -600,6 +657,10 @@ def test_ssm_scan_float64_witness_matches_the_oracles(kind, b, s, d, n):
                                 "REG_BITS=5"]),
     ("repro_torch.kernels.bitonic_sort.op_costs", []),
     ("repro_torch.kernels.ab", ["ssm_scan"]),
+    ("repro_torch.kernels.ab", ["radix_partition", "--shape",
+                                "4097,5,hot"]),
+    ("repro_torch.kernels.ab", ["radix_partition", "--probe",
+                                "--other-define", "TILE=2048"]),
     ("repro_torch.kernels.ssm_scan.accuracy", ["--shape", "1,64,32,8"]),
 ])
 def test_bitonic_sort_measurement_scripts_need_a_card(module, argv):
