@@ -26,6 +26,18 @@ Phases, one JSON line each:
             an untimed warm-up that the launch count leaves out
   shuffle   the out-of-core shuffle's radix_bucket at 35 million rows with
             verify=True, plus one sort task and one join task
+  process   ProcessExecutor: 2 worker processes of 2 ranks each, both on
+            cuda:0 (a CUDA context each beside this one): the ETL pipelines
+            on the process backend under both policies (makespans beside the
+            thread backend's) and merge_all across both workers, a sort task
+            spanning both workers at 17.5 million rows a part (35 million in
+            all, verify_kernel on) and a join task at 2 million rows a side a
+            part, both held to numpy, then one worker SIGKILLed under a
+            2-rank task, which must finish on the survivor after a retry; no
+            worker may outlive shutdown().  radix_partition launches in the
+            workers, out of this process's count: each worker's count is
+            read by a task spanning both (etl.radix_launches), and each
+            worker must have launched it
   serve     qwen3-8b at its published widths in bf16 (random weights from a
             seeded generator), 4 logical ranks of cuda:0, through both acts
             of python -m repro_torch.serve_lm: the static engine as a task
@@ -46,8 +58,8 @@ Phases, one JSON line each:
             wrapper: keys equal the stable oracle's (its ref.sort_ref),
             payloads regather them
 
-The main-path phases (dist, pipeline, shuffle, the four serve phases and
-sort)
+The main-path phases (dist, pipeline, shuffle, process, the four serve
+phases and sort)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (serve_ssm: exactly once per
 layer per prefill).  Then come the kernel summary line, the card's name
@@ -74,6 +86,9 @@ sys.path.insert(0, str(ROOT / "src"))
 DIST_ROWS = 35_000_000          # the paper's dataframe size
 N_RANKS = 4
 PIPE_ROWS = 2_000_000           # rows per ETL task in the pipeline phase
+PROC_WORKERS, PROC_RANKS = 2, 2     # process phase: workers, ranks a worker
+PROC_SORT_ROWS = DIST_ROWS // PROC_WORKERS  # rows a part of the spanning sort
+PROC_JOIN_ROWS = 2_000_000      # rows a side a part of the spanning join
 SHUFFLE_BUCKETS = 8             # radix_bucket's buckets in the shuffle phase
 SERVE_ARCH = "qwen3-8b"
 SSM_ARCH = "falcon-mamba-7b"
@@ -251,6 +266,11 @@ def _radix_spec():
         (capacity(PIPE_ROWS, N_RANKS // 2), N_RANKS // 2 + 1),
         # shuffle: radix_bucket over the whole input
         (DIST_ROWS, SHUFFLE_BUCKETS),
+        # process: each worker's part of the spanning sort and join, and
+        # an ETL task's pack on one rank of a worker
+        (PROC_SORT_ROWS, PROC_WORKERS),
+        (PROC_JOIN_ROWS, PROC_WORKERS),
+        (capacity(PIPE_ROWS, 1), 2),
     )
     # bucket counts on each side of the kernel's edges: past 8 a warp scans
     # two buckets' counters, past SMALL_BUCKETS the strategy changes
@@ -898,9 +918,13 @@ def phase_pipeline():
                         for p, (res, _) in runs.items()}}
 
 
-def _numpy_join_summary(spec):
+def _numpy_join_summary(spec, parts: int = 1):
+    """The join task's summary by numpy: every part's left rows joined with
+    every part's right rows."""
     from repro_torch.dataframe.shuffle import _gen_part
-    left, right = _gen_part(spec, 0, 0), _gen_part(spec, 0, 1)
+    left, right = ({k: np.concatenate([c[k] for c in cs]) for k in cs[0]}
+                   for cs in ([_gen_part(spec, p, side) for p in range(parts)]
+                              for side in (0, 1)))
     rk_order = np.argsort(right["key"], kind="stable")
     rk = right["key"][rk_order]
     lo = np.searchsorted(rk, left["key"], "left")
@@ -950,6 +974,167 @@ def phase_shuffle(comm, rng):
         raise AssertionError(f"join_task {res} vs numpy {want}")
     out["join_task"] = {"rows": spec["rows_per_part"], "wall_s": s,
                         "pairs": res["n"], "spills": res["spills"]}
+    return out
+
+
+def _free_gb() -> float:
+    return torch.cuda.mem_get_info()[0] / 1e9
+
+
+def _spanning(ex, name, fn, ranks, spec, **kw):
+    """``fn(comm, spec)`` as one task of ``ranks`` ranks; returns the task
+    and its wall seconds."""
+    from repro_torch.core import SchedulerSession, TaskDescription, TaskState
+    t0 = time.perf_counter()
+    rep = SchedulerSession(ex, ex.resource_manager()).run(
+        [TaskDescription(name=name, ranks=ranks, fn=fn, args=(spec,),
+                         tags={"pipeline": "process"}, **kw)], timeout=600)
+    task = rep.tasks[0]
+    if task.state != TaskState.DONE:
+        raise AssertionError(f"{name}: {task.state} {task.error}")
+    return task, time.perf_counter() - t0, rep
+
+
+def _transport(task, wall_s, rep) -> dict:
+    """A spanning task's wall, transport counters, and its parts' flight-
+    recorder spans summed by kind, seconds per worker (host clock)."""
+    spans: dict = {}
+    for sp in rep.spans:
+        if sp["uid"] == task.uid:
+            w = spans.setdefault(sp["worker"], {})
+            w[sp["kind"]] = w.get(sp["kind"], 0.0) + sp["t1"] - sp["t0"]
+    return {"wall_s": wall_s, "p2p_bytes": task.p2p_bytes,
+            "shm_bytes": task.shm_bytes, "hub_calls": task.hub_calls,
+            "p2p_fallbacks": task.p2p_fallbacks, "spills": task.spills,
+            "workers": sorted({d.worker for d in task.devices}),
+            "span_s": spans}
+
+
+def phase_process(records, thread_makespans, device=None):
+    """The multi-process pilot on one card: 2 workers of 2 ranks, both on
+    cuda:0 (``device`` None: the executor's default, the card).  Every
+    expected result is computed before the workers start:
+    numpy holding the interpreter lock for seconds would stall the threads
+    that read the workers' heartbeats."""
+    from repro_torch import etl
+    from repro_torch.core import ProcessExecutor
+    from repro_torch.dataframe.shuffle import _gen_part, join_task, sort_task
+    n = PROC_WORKERS * PROC_RANKS
+    sort_spec = {"rows_per_part": PROC_SORT_ROWS, "seed": 11,
+                 "verify_kernel": True}
+    keys = np.concatenate([_gen_part(sort_spec, p)["key"]
+                           for p in range(PROC_WORKERS)])
+    want_sort = {"n": len(keys), "key_sum": _u64sum(keys), "sorted": True}
+    del keys
+    join_spec = {"rows_per_part": PROC_JOIN_ROWS, "key_range": 4_000_000,
+                 "seed": 12, "verify_kernel": True}
+    want_join = _numpy_join_summary(join_spec, PROC_WORKERS)
+    kill_spec = {"rows_per_part": 1_000_000, "seed": 13, "stall_s": 4.0}
+    kill_keys = _gen_part(kill_spec, 0)["key"]
+    want_kill = {"n": len(kill_keys), "key_sum": _u64sum(kill_keys),
+                 "sorted": True}
+    free_device_memory()
+    out = {"workers": PROC_WORKERS, "ranks_per_worker": PROC_RANKS,
+           "free_gb_before": _free_gb()}
+    launches: dict = {}
+
+    def census(step):
+        """Each worker's radix_partition launches since the last census."""
+        counts = etl.run_spanning(ex, "census", etl.radix_launches,
+                                  reset=True).result
+        for pid, c in counts.items():
+            launches[pid] = launches.get(pid, 0) + c
+        out.setdefault("launches_by_step", {})[step] = {
+            str(pid): c for pid, c in counts.items()}
+
+    t0 = time.perf_counter()
+    ex = ProcessExecutor(n_workers=PROC_WORKERS,
+                         devices_per_worker=PROC_RANKS, device=device).start()
+    try:
+        out["start_s"] = time.perf_counter() - t0
+        out["hello_s"] = {w.wid: w.hello_s for w in ex.workers.values()}
+        out["worker_devices"] = {w.wid: w.device
+                                 for w in ex.workers.values()}
+        if set(out["worker_devices"].values()) != {device or "cuda:0"}:
+            raise AssertionError(f"workers on {out['worker_devices']}")
+        pids = {w.proc.pid for w in ex.workers.values()}
+        out["free_gb_with_workers"] = _free_gb()
+        # first use in each worker (kernel load, allocator), then zero the
+        # workers' counts: the warm-up stays out of them, as in pipeline
+        _, out["warm_up_s"] = wall(lambda: etl.warm_up(executor=ex))
+        etl.run_spanning(ex, "census", etl.radix_launches, reset=True)
+
+        runs = etl.run(rows=PIPE_ROWS, sort_sleep=0.0, join_sleep=0.0,
+                       backend="process", executor=ex, timeout=600)
+        out["pipeline"] = {
+            "rows_per_task": PIPE_ROWS,
+            "makespan_s": {p: rep.makespan for p, (_, rep) in runs.items()},
+            "thread_backend_makespan_s": thread_makespans,
+            "merge": {p: res[("sort", "merge")]
+                      for p, (res, _) in runs.items()}}
+        out["merge_all"], out["merge_all_s"] = wall(
+            lambda: etl.merge_all(ex, PIPE_ROWS))
+        census("pipeline")
+
+        task, s, rep = _spanning(ex, "sort", sort_task, n, sort_spec)
+        res = task.result
+        if {k: res[k] for k in want_sort} != want_sort:
+            raise AssertionError(f"spanning sort_task {res} vs numpy "
+                                 f"{want_sort}")
+        out["sort_task"] = {"rows_per_part": PROC_SORT_ROWS,
+                            "rows": want_sort["n"],
+                            **_transport(task, s, rep)}
+        census("sort_task")
+
+        task, s, rep = _spanning(ex, "join", join_task, n, join_spec)
+        res = task.result
+        if {k: res[k] for k in want_join} != want_join:
+            raise AssertionError(f"spanning join_task {res} vs numpy "
+                                 f"{want_join}")
+        out["join_task"] = {"rows_per_part": PROC_JOIN_ROWS,
+                            "pairs": res["n"], **_transport(task, s, rep)}
+        census("join_task")
+        missing = [pid for pid in pids if launches.get(pid, 0) <= 0]
+        if missing:
+            raise AssertionError(f"radix_partition never launched in worker "
+                                 f"processes {missing}: {launches}")
+        records["radix_partition"]["launches"] += sum(launches.values())
+        out["radix_launches_by_worker"] = {str(p): c
+                                           for p, c in launches.items()}
+
+        # SIGKILL the worker under a 2-rank task (both ranks on one worker)
+        from repro_torch.core import SchedulerSession, TaskDescription
+        sess = SchedulerSession(ex, ex.resource_manager())
+        sess.submit([TaskDescription(name="victim", ranks=2, fn=sort_task,
+                                     args=(kill_spec,), max_retries=2,
+                                     tags={"pipeline": "process"})])
+        time.sleep(1.5)
+        victim = next(iter(ex._running.values())).task.devices[0].worker
+        out["free_gb_before_kill"] = _free_gb()
+        t_kill = time.perf_counter()
+        ex.kill_worker(victim)
+        rep = sess.drain(timeout=600).close()
+        task = rep.tasks[0]
+        if not (task.result == dict(want_kill, spills=0) and task.retries
+                and len(rep.events("device_failure")) == 1
+                and victim not in {d.worker for d in task.devices}):
+            raise AssertionError(f"killed worker's task: {task.state} "
+                                 f"{task.error} {task.result}")
+        out["kill"] = {"victim": victim, "retries": task.retries,
+                       "recovered_s": time.perf_counter() - t_kill,
+                       "survivor": sorted({d.worker for d in task.devices})}
+        time.sleep(2.0)
+        out["free_gb_2s_after_kill"] = _free_gb()
+    finally:
+        ex.shutdown()
+    alive = [w.wid for w in ex.workers.values() if w.proc.poll() is None]
+    if alive:
+        raise AssertionError(f"workers {alive} outlived shutdown()")
+    out["free_gb_after_shutdown"] = _free_gb()
+    out["executor_totals"] = {"p2p_bytes": ex.p2p_bytes,
+                              "shm_bytes": ex.shm_bytes,
+                              "hub_calls": ex.hub_calls,
+                              "hub_relay_bytes": ex.hub_relay_bytes}
     return out
 
 
@@ -1162,10 +1347,15 @@ def main() -> int:
     with MainPath(specs, records, radix) as mp:
         res = phase_pipeline()
     emit("pipeline", launches=mp.counts(), **res)
+    thread_makespans = res["makespan_s"]
     one = build_communicator(logical_devices(1, "cuda:0"))
     with MainPath(specs, records, radix) as mp:
         res = phase_shuffle(one, rng)
     emit("shuffle", launches=mp.counts(), **res)
+    # the workers launch the kernel; this process launches nothing here
+    with MainPath(specs, records, ()) as mp:
+        res = phase_process(records, thread_makespans)
+    emit("process", launches=mp.counts(), **res)
 
     res, _ = run_serve(SERVE_ARCH, specs, records, radix + attention)
     emit("serve", **res)

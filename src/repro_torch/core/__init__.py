@@ -15,17 +15,18 @@ from repro_torch.core.pipeline import Pipeline, Stage, run_pipelines
 from repro_torch.core.raptor import RaptorMaster, session
 from repro_torch.core.scheduler import (
     BATCH, HETEROGENEOUS, PACK, PLACEMENTS, SPREAD, ExecEvent, Executor,
-    LiveScheduler, SchedulerSession, SimOptions, SimReport, StubComm,
-    ThreadExecutor, Topology, TraceEvent, VirtualClockExecutor,
-    default_overhead_model, interleave_by_pipeline, simulate,
+    LiveScheduler, ProcDevice, ProcessExecutor, SchedulerSession, SimOptions,
+    SimReport, StubComm, ThreadExecutor, Topology, TraceEvent,
+    VirtualClockExecutor, default_overhead_model, interleave_by_pipeline,
+    simulate,
 )
 from repro_torch.core.task import Task, TaskDescription, TaskState
 
 __all__ = [
     "BATCH", "HETEROGENEOUS", "PACK", "PLACEMENTS", "SPREAD", "Communicator",
     "ExecEvent", "Executor", "InsufficientResources", "LiveScheduler",
-    "Pilot", "PilotDescription", "PilotManager", "Pipeline", "RankDevice",
-    "RaptorMaster", "ResourceManager", "SchedulerSession", "SimOptions",
+    "Pilot", "PilotDescription", "PilotManager", "Pipeline", "ProcDevice",
+    "ProcessExecutor", "RankDevice", "RaptorMaster", "ResourceManager", "SchedulerSession", "SimOptions",
     "SimReport", "Stage", "StubComm", "Task", "TaskDescription", "TaskState",
     "ThreadExecutor", "Topology", "TraceEvent", "VirtualClockExecutor",
     "build_communicator", "cuda_devices", "default_overhead_model",

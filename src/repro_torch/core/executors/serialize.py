@@ -91,15 +91,19 @@ def _as_array(leaf):
     """``leaf`` as a C-contiguous ndarray when it is raw-shippable (numpy
     array or torch tensor of a non-object dtype), else None.  A CPU tensor
     comes through ``.numpy()`` without a copy; a CUDA tensor is staged to
-    the host first.  Detection is type-based — lists/scalars/bytes must
-    never be promoted to arrays, or the round trip would change the
-    payload's types."""
+    the host first.  A tensor of a dtype numpy lacks (bfloat16, the float8
+    types) stays a pickled leaf and comes back a tensor.  Detection is
+    type-based — lists/scalars/bytes must never be promoted to arrays, or
+    the round trip would change the payload's types."""
     import numpy as np
     if isinstance(leaf, np.ndarray):
         a = leaf
     elif type(leaf).__module__.split(".", 1)[0] == "torch" \
             and hasattr(leaf, "detach") and hasattr(leaf, "numpy"):
-        a = leaf.detach().cpu().numpy()
+        try:
+            a = leaf.detach().cpu().numpy()
+        except TypeError:            # no numpy dtype: pickle the tensor
+            return None
     else:
         return None
     if a.dtype.hasobject:

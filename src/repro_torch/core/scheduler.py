@@ -2,8 +2,9 @@
 ONCE against an abstract ``Executor`` so the *identical* scheduling code runs
 (a) live on real devices (``ThreadExecutor``), (b) on a virtual clock
 at 84–2688 ranks (``VirtualClockExecutor``, the paper's ORNL-Summit scales),
-and, in the JAX package and a later slice of this port, (c) across worker
-*processes* (``ProcessExecutor``).
+and (c) across worker *processes* — one fresh interpreter per node with its
+own ranks, heartbeat liveness, and cross-process per-task communicators
+(``ProcessExecutor``, see ``repro_torch.core.executors.proc``).
 
 Two policies, mirroring the paper's §4.3 comparison:
 
@@ -68,8 +69,8 @@ from typing import Optional, Sequence
 from repro_torch.core.executors import serialize as _serialize
 
 from repro_torch.core.executors import (
-    ExecEvent, Executor, SimOptions, StubComm, ThreadExecutor,
-    VirtualClockExecutor, default_overhead_model,
+    ExecEvent, Executor, ProcDevice, ProcessExecutor, SimOptions, StubComm,
+    ThreadExecutor, VirtualClockExecutor, default_overhead_model,
 )
 from repro_torch.core.pilot import InsufficientResources, ResourceManager
 from repro_torch.obs import trace as _obs_trace
@@ -78,10 +79,10 @@ from repro_torch.core.task import Task, TaskDescription, TaskState
 
 __all__ = [  # executor names are re-exported for historical import paths
     "BATCH", "HETEROGENEOUS", "PACK", "PLACEMENTS", "SPREAD", "ExecEvent",
-    "Executor", "LiveScheduler", "SchedulerSession", "SimOptions",
-    "SimReport", "StubComm", "ThreadExecutor", "Topology", "TraceEvent",
-    "VirtualClockExecutor", "default_overhead_model",
-    "interleave_by_pipeline", "simulate",
+    "Executor", "LiveScheduler", "ProcDevice", "ProcessExecutor",
+    "SchedulerSession", "SimOptions", "SimReport", "StubComm",
+    "ThreadExecutor", "Topology", "TraceEvent", "VirtualClockExecutor",
+    "default_overhead_model", "interleave_by_pipeline", "simulate",
 ]
 
 HETEROGENEOUS = "heterogeneous"

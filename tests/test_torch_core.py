@@ -209,7 +209,8 @@ def test_port_imports_without_loading_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.etl, repro_torch.core, "
             "repro_torch.dataframe.ops_dist, repro_torch.dataframe.shuffle, "
             "repro_torch.obs, repro_torch.serve_lm, "
-            "repro_torch.models.convert\n"
+            "repro_torch.models.convert, repro_torch.core.executors.proc, "
+            "repro_torch.core.executors.worker\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

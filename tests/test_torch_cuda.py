@@ -552,3 +552,79 @@ def test_bitonic_sort_kernel_raises_not_falls_back(cuda):
         ks, ps = bs.bitonic_sort(torch.ones(shape, device=cuda))
         assert ks.shape == ps.shape == shape
     assert bs.bitonic_sort.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the multi-process pilot: worker processes on the card
+# ---------------------------------------------------------------------------
+def test_process_executor_spanning_sort_on_the_card(cuda):
+    """2 worker processes of 2 ranks each, on the card by default (both on
+    cuda:0 with one card): a sort task spanning both workers, its buckets
+    packed by the kernel in each worker (held to its oracle there), equals
+    numpy; each worker launched the kernel; none outlives shutdown."""
+    from repro_torch import etl
+    from repro_torch.core import (ProcessExecutor, SchedulerSession,
+                                  TaskDescription, TaskState)
+    from repro_torch.dataframe.shuffle import _gen_part, sort_task
+    spec = {"rows_per_part": 300_000, "seed": 21, "verify_kernel": True}
+    keys = np.concatenate([_gen_part(spec, p)["key"] for p in range(2)])
+    with ProcessExecutor(n_workers=2, devices_per_worker=2) as ex:
+        assert all(w.device.startswith("cuda:")
+                   for w in ex.workers.values())
+        etl.run_spanning(ex, "census", etl.radix_launches, reset=True)
+        rep = SchedulerSession(ex, ex.resource_manager()).run(
+            [TaskDescription(name="sort", ranks=4, fn=sort_task,
+                             args=(spec,))], timeout=300)
+        task = rep.tasks[0]
+        assert task.state == TaskState.DONE, task.error
+        assert {d.worker for d in task.devices} == {"w0", "w1"}
+        counts = etl.run_spanning(ex, "census", etl.radix_launches).result
+    assert task.result["n"] == len(keys) and task.result["sorted"]
+    assert task.result["key_sum"] == int(
+        np.add.reduce(keys.astype(np.uint64), dtype=np.uint64))
+    assert len(counts) == 2 and all(c >= 1 for c in counts.values())
+    assert task.p2p_bytes > 0
+    assert all(w.proc.poll() is not None for w in ex.workers.values())
+
+
+@pytest.mark.parametrize("tier", ["raw", "shm"])
+def test_peer_frames_carry_cuda_tensors(cuda, tier):
+    """A collective payload holding CUDA tensors is staged to host memory
+    (``serialize._as_array``) and crosses on either transport tier bit for
+    bit; a bfloat16 tensor (no numpy dtype) rides pickled and comes back on
+    its device."""
+    from pathlib import Path
+
+    from repro_torch.core.executors import protocol, serialize
+    from repro_torch.core.executors import shm as shmseg
+    from repro_torch.core.executors.worker import _PeerNet
+    if tier == "shm" and not shmseg.HAVE_SHM:
+        pytest.skip("needs a /dev/shm mount")
+    a, b = _PeerNet("wa", token="t"), _PeerNet("wb", token="t")
+    a.start("127.0.0.1")
+    b.start("127.0.0.1")
+    x = torch.randn(1 << 16, generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda)
+    h = x[:100].to(torch.bfloat16)          # no numpy dtype: pickled leaf
+    obj = {"x": x, "i": torch.arange(1000, device=cuda, dtype=torch.int32),
+           "h": h, "tag": "t"}
+    skel, metas, bufs = serialize.dumps_arrays(obj)
+    head = dict(skel=skel, arrs=metas, uid=1, attempt=0, seq=0, part=0)
+    if tier == "raw":
+        assert a.send_kind("wb", b.data_addr, protocol.PEER_DATA_GEN,
+                           bufs=bufs, **head)
+    else:
+        name = shmseg.segment_name("t", "wa")
+        nbytes = shmseg.write(name, bufs)
+        assert a.send_kind("wb", b.data_addr, protocol.PEER_DATA_SHM,
+                           shm=name, nbytes=nbytes, **head)
+    frame = b.take((1, 0, 0, 0), timeout=30)
+    back = serialize.loads_arrays(frame["skel"], frame["arrs"],
+                                  frame["payload"])
+    if tier == "shm":
+        assert not (Path("/dev/shm") / name).exists()
+    assert back["tag"] == "t"
+    assert np.array_equal(back["i"], np.arange(1000, dtype=np.int32))
+    assert np.array_equal(back["x"].view(np.int32),
+                          x.cpu().numpy().view(np.int32))
+    assert back["h"].device == h.device and torch.equal(back["h"], h)
