@@ -57,12 +57,34 @@ Phases, one JSON line each:
             benchmarks/bench_kernels.py) and of its test sweep, through the
             wrapper: keys equal the stable oracle's (its ref.sort_ref),
             payloads regather them
+  train_etl the ETL -> train pipeline of python -m repro_torch.train_lm at
+            its full preset (qwen3-100m, 12 layers, f32, batch 8 x 256): the
+            ETL stage on 4 logical ranks of cuda:0 feeds 40 steps saving
+            every 20, the same state goes on to 60; a fresh trainer restores
+            step 40 (bit-equal) and trains to 60 (losses within 1e-5
+            relative of the uninterrupted run's); the loss falls; then
+            radix_partition is held to its plain version at every (n, B)
+            the ETL stage called it at
+  train_qwen3  qwen3-8b at its published widths in bf16, 4 of its 36 layers,
+            5 AdamW steps on one batch of 1 x 2048 tokens: the loss falls,
+            step time and peak memory; then the attention Function's q, k
+            and v gradients bit-equal to autograd of the plain path at
+            (1, 2048, 32, 8, 128) bf16
+  train_cpu_gpu  the ci preset, 10 steps from the same parameters and
+            batches on cuda:0 (TF32 off) and on the CPU: losses within 1e-4
+            relative
+  train_task   python -m repro_torch.train_lm's train_task (ci preset) as a
+            task on the thread executor with a checkpoint root: it saves
+            through comm.checkpoint every 5 steps, its first attempt raises
+            after step 12, the retry resumes from step 10 and finishes; the
+            session's trace exported by the port's Perfetto export
 
 The main-path phases (dist, pipeline, shuffle, process, the four serve
-phases and sort)
+phases, sort and the four train phases)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (serve_ssm: exactly once per
-layer per prefill).  Then come the kernel summary line, the card's name
+layer per prefill; the train phases: flash_attention once per layer per
+forward, twice under remat).  Then come the kernel summary line, the card's name
 and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero at once.
@@ -96,6 +118,12 @@ SERVE_PROMPTS = [2048, 2048, 1024, 1024, 512, 512, 1536, 768]
 SERVE_BUDGETS = [16, 32] * 4    # max_new_tokens of each serve request
 SERVE_MAX_BATCH, SERVE_MAX_SEQ = 4, 4096
 F32_PROMPTS, F32_NEW = [300, 77, 129], 8      # the f32 token check
+CARD = "cuda:0"                 # the train phases' device
+TRAIN_ETL_STEPS, TRAIN_ETL_SAVED, TRAIN_ETL_EVERY = 60, 40, 20
+TRAIN_RESUME_RTOL = 1e-5        # resumed against uninterrupted losses
+TRAIN_QWEN3_LAYERS, TRAIN_QWEN3_SEQ, TRAIN_QWEN3_STEPS = 4, 2048, 5
+TRAIN_CPU_GPU_STEPS, TRAIN_CPU_GPU_RTOL = 10, 1e-4
+TASK_STEPS, TASK_CKPT_EVERY, TASK_FAIL_AT = 20, 5, 12
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (same)
 # exponentials: 16 a clock per SM (CUDA programming guide, compute
@@ -327,6 +355,7 @@ def _attention_library(q, k, v):
 
 def _attention_spec():
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.train_lm import model_for
 
     def inputs(shape, gen):
         b, h, kh, s, hd, dtype = shape
@@ -399,6 +428,12 @@ def _attention_spec():
                 {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
             *((1, 32, 8, s + d, 128, f32) for s in F32_PROMPTS
               for d in range(F32_NEW)),
+            # the train phases' f32 forwards: the full preset (train_etl)
+            # and the ci preset (train_cpu_gpu, train_task); train_qwen3's
+            # is the first shape
+            *((sh.global_batch, c.n_heads, c.n_kv_heads, sh.seq_len,
+               c.head_dim, f32) for c, sh, _ in map(model_for,
+                                                    ("full", "ci"))),
         ),
         "sweep": tuple(
             (b, h, kh, s, hd, dtype)
@@ -708,24 +743,12 @@ def phase_kernels(specs, gen):
     yardstick."""
     records = {}
     for spec in specs:
-        checks, max_err = [], 0
         shapes = [(s, True) for s in spec["main_shapes"]] + [
             (s, False) for s in spec["sweep"]]
         kw = spec.get("kwargs", {})
-        for shape, main_path in shapes:
-            args = spec["inputs"](shape, gen)
-            out = spec["wrapper"](*args, **kw)
-            ref = spec["plain"](*args, **kw)
-            sync()
-            err, ok, info = spec["compare"](out, ref, args, shape=shape)
-            max_err = max(max_err, err)
-            checks.append({**spec["describe"](shape), "main_path": main_path,
-                           "max_abs_err": err, **info})
-            if not ok:
-                raise AssertionError(f"{spec['name']} disagrees with its "
-                                     f"plain version at {shape}: max abs "
-                                     f"err {err}")
-            del args, out, ref
+        checks = [check_kernel(spec, shape, gen, main_path)
+                  for shape, main_path in shapes]
+        max_err = max(c["max_abs_err"] for c in checks)
         # the first main-path shape goes into the kernel summary line;
         # "timed" names more shapes to time (their numbers go to this line)
         timings = [_time_kernel(spec, shape, gen, kw) for shape in
@@ -741,6 +764,22 @@ def phase_kernels(specs, gen):
         emit("kernels", name=spec["name"], checks=checks, **t,
              timed=timings[1:], tolerance=spec["tolerance"])
     return records
+
+
+def check_kernel(spec, shape, gen, main_path: bool) -> dict:
+    """The kernel's wrapper against its plain version on inputs at
+    ``shape``; raises unless they agree within the spec's tolerance."""
+    kw = spec.get("kwargs", {})
+    args = spec["inputs"](shape, gen)
+    out = spec["wrapper"](*args, **kw)
+    ref = spec["plain"](*args, **kw)
+    sync()
+    err, ok, info = spec["compare"](out, ref, args, shape=shape)
+    if not ok:
+        raise AssertionError(f"{spec['name']} disagrees with its plain "
+                             f"version at {shape}: max abs err {err}")
+    return {**spec["describe"](shape), "main_path": main_path,
+            "max_abs_err": err, **info}
 
 
 def _time_kernel(spec, shape, gen, kw) -> dict:
@@ -1309,6 +1348,324 @@ def phase_sort(gen):
                      "wall_s": s})
     return {"sorts": rows}
 
+# ---------------------------------------------------------------------------
+# training: the ETL -> train pipeline, qwen3-8b's widths, the CPU twin, and a
+# checkpointed task retried on the thread executor
+# ---------------------------------------------------------------------------
+class RadixShapes:
+    """Record the (n, B) of every radix_partition call the dist ops make
+    while inside, so that the kernel can be held to its plain version at
+    exactly those shapes afterwards."""
+
+    def __enter__(self):
+        from repro_torch.dataframe import ops_dist
+        self.mod, self.orig, self.shapes = ops_dist, \
+            ops_dist.radix_partition, set()
+
+        def recording(b, n_buckets):
+            self.shapes.add((int(b.shape[0]), int(n_buckets)))
+            return self.orig(b, n_buckets)
+        ops_dist.radix_partition = recording
+        return self
+
+    def __exit__(self, *_):
+        self.mod.radix_partition = self.orig
+        return False
+
+
+def _step_times(state: dict):
+    """An ``on_metrics`` callback stamping each step's end (the trainer
+    reads the loss, so each stamp follows a synchronised step)."""
+    def stamp(step, _metrics):
+        state.setdefault("t", [time.perf_counter()])
+        state["t"].append(time.perf_counter())
+    return stamp
+
+
+def _step_ms(stamps: list) -> float:
+    """Median step time, the first step (first-use costs) left out."""
+    return statistics.median(np.diff(stamps[1:])) * 1e3
+
+
+def split_step(tr, state, batch) -> dict:
+    """Where a train step's time goes, after the phase's checks (the state
+    moves on): the forward and backward alone and the AdamW update alone
+    (CUDA events, median of 3), and one whole step under the profiler."""
+    from repro_torch.models.convert import decayed_names
+    from repro_torch.train.optimizer import adamw_update
+    batch = {k: torch.as_tensor(v).to(tr.device) for k, v in batch.items()}
+    params = dict(state.params.named_parameters())
+    mode = tr.bundle.info["mode"]
+
+    def fwd_bwd():
+        loss = tr.api.loss_fn(state.params, tr.cfg, batch, mode)
+        return torch.autograd.grad(loss, list(params.values()))
+    grads = dict(zip(params, fwd_bwd()))
+    decay = decayed_names(params, tr.cfg)
+    return {"fwd_bwd_ms": time_ms(fwd_bwd, reps=3, warmup=1),
+            "optimizer_ms": time_ms(lambda: adamw_update(
+                grads, state.opt_state, params, tr.ocfg, decay), reps=3,
+                warmup=1),
+            "profile_step": profile(lambda: tr.bundle.fn(
+                state.params, state.opt_state, batch))}
+
+
+def phase_train_etl(specs, records, gen):
+    """The full preset fed by the ETL stage on N_RANKS logical ranks of
+    cuda:0: TRAIN_ETL_SAVED steps saving every TRAIN_ETL_EVERY, then the
+    same state on to TRAIN_ETL_STEPS without saving (the uninterrupted
+    run), and a fresh trainer restoring TRAIN_ETL_SAVED and training to
+    TRAIN_ETL_STEPS: restored parameters bit-equal, losses within
+    TRAIN_RESUME_RTOL.  radix_partition is then held to its plain version
+    at every (n, B) the ETL stage called it at."""
+    import tempfile
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.core import build_communicator, logical_devices
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train_lm import etl_batches, model_for, optimizer_for
+    cfg, shape, _ = model_for("full")
+    n, saved = TRAIN_ETL_STEPS, TRAIN_ETL_SAVED
+    comm = build_communicator(logical_devices(N_RANKS, CARD))
+    tokens = shape.global_batch * shape.seq_len
+    out = {"preset": "full", "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": shape.global_batch, "seq": shape.seq_len, "steps": n,
+           "etl_ranks": N_RANKS}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckdir:
+        def trainer(**kw):
+            return Trainer(cfg, ParallelConfig(), shape, optimizer_for(n),
+                           device=CARD, **kw)
+        with MainPath(specs, records, ("radix_partition",
+                                       "flash_attention")) as mp, \
+                RadixShapes() as seen:
+            (batches, made), etl_s = wall(
+                lambda: etl_batches(cfg, shape, n, comm))
+            radix_etl = mp.counts()["radix_partition"]
+            tr = trainer(ckpt_dir=ckdir, ckpt_every=TRAIN_ETL_EVERY)
+            state, stamps = tr.init_state(), {}
+            params = sum(p.numel() for p in state.params.parameters())
+            (state, first), s1 = wall(lambda: tr.fit(
+                batches[:saved], saved, state, log_every=0,
+                on_metrics=_step_times(stamps)))
+            snap = [p.detach().clone() for p in state.params.parameters()]
+            state, rest = trainer().fit(batches[saved:], n - saved, state,
+                                        log_every=0)
+            fa_uninterrupted = mp.counts()["flash_attention"]
+            back = trainer(ckpt_dir=ckdir).maybe_restore()
+            if back is None or back.step != saved:
+                raise AssertionError(f"restored {back and back.step}, not "
+                                     f"step {saved}")
+            bit_equal = all(torch.equal(a, b) for a, b in
+                            zip(back.params.parameters(), snap))
+            back, resumed = trainer().fit(batches[saved:], n - saved, back,
+                                          log_every=0)
+        counts = mp.counts()
+    losses = first + rest
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, rest))
+    want_fa = cfg.n_layers * (2 if cfg.remat else 1)
+    if not bit_equal:
+        raise AssertionError("the restored parameters differ from step "
+                             f"{saved}'s")
+    if rel > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"resumed losses differ by {rel} relative")
+    if not (losses[-1] < losses[0] and np.all(np.isfinite(losses))):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if fa_uninterrupted != want_fa * n or radix_etl <= 0:
+        raise AssertionError(f"launches: flash_attention {fa_uninterrupted}"
+                             f" for {n} steps of {want_fa}, radix_partition "
+                             f"{radix_etl}")
+    radix_spec = next(s for s in specs if s["name"] == "radix_partition")
+    checks = [check_kernel(radix_spec, s, gen, True) for s in
+              sorted(seen.shapes)]
+    records["radix_partition"]["max_abs_err"] = max(
+        records["radix_partition"]["max_abs_err"],
+        max(c["max_abs_err"] for c in checks))
+    step_ms = _step_ms(stamps["t"])
+    out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **split_step(trainer(), back, batches[0]),
+               param_count=params, etl_s=etl_s, etl_batches=made,
+               radix_partition_launches_etl=radix_etl,
+               radix_partition_shapes=checks,
+               flash_attention_launches_per_step=want_fa,
+               step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               wall_s_first_40=s1, losses=losses, resumed_losses=resumed,
+               restored_step=saved, restored_bit_equal=bit_equal,
+               resume_max_rel_diff=rel, launches=counts)
+    return out
+
+
+def phase_train_qwen3(specs, records, gen):
+    """qwen3-8b at its published widths in bf16, TRAIN_QWEN3_LAYERS of its
+    layers: TRAIN_QWEN3_STEPS AdamW steps on one fixed batch of 1 x
+    TRAIN_QWEN3_SEQ tokens.  Then the attention Function's gradients held
+    bit-equal to autograd through the plain path the train step
+    differentiates at that length."""
+    import dataclasses
+    import functools
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.distributed.steps import _attn_mode
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    from repro_torch.models import make_concrete_batch, train_batch_shapes
+    from repro_torch.models.attention import attend_plain
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=TRAIN_QWEN3_LAYERS)
+    s, steps = TRAIN_QWEN3_SEQ, TRAIN_QWEN3_STEPS
+    shape = ShapeConfig("t", "train", s, 1)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, ParallelConfig(), shape,
+                 OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                 total_steps=steps), device=CARD)
+    batch = make_concrete_batch(train_batch_shapes(cfg, 1, s),
+                                np.random.default_rng(0), cfg.vocab_size,
+                                CARD)
+    with MainPath(specs, records, ("flash_attention",)) as mp:
+        state, init_s = wall(tr.init_state)
+        stamps = {}
+        (state, losses), fit_s = wall(lambda: tr.fit(
+            [batch] * steps, steps, state, log_every=0,
+            on_metrics=_step_times(stamps)))
+    counts = mp.counts()
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)
+    if counts["flash_attention"] != per_step * steps:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times in {steps} "
+                             f"steps of {per_step}")
+    if not (losses[-1] < losses[0] and np.all(np.isfinite(losses))):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    params = sum(p.numel() for p in state.params.parameters())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = split_step(tr, state, batch)
+    del state, tr
+    free_device_memory()
+
+    mode = _attn_mode(cfg, ParallelConfig(), s)
+    plain = functools.partial(attend_plain, mode=mode)
+    q, k, v = (torch.randn((1, s, h, cfg.head_dim), generator=gen,
+                           device="cuda").to(torch.bfloat16).requires_grad_()
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    g = torch.randn((1, s, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got = torch.autograd.grad(FlashAttention.apply(q, k, v, True, plain),
+                              (q, k, v), g)
+    want = torch.autograd.grad(plain(q, k, v, causal=True), (q, k, v), g)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the attention Function's gradients differ from"
+                             " autograd of the plain path")
+    step_ms = _step_ms(stamps["t"])
+    return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+            "batch": 1, "seq": s, "param_count": params, "init_s": init_s,
+            "fit_s": fit_s, "losses": losses, "step_ms": step_ms,
+            "tokens_per_s": s / step_ms * 1e3, "peak_gb": peak_gb,
+            "flash_attention_launches_per_step": per_step, **split,
+            "grad_check": {"shape": [1, s, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim], "dtype": "bfloat16",
+                           "backward_path": mode.kind, "bit_equal": True},
+            "launches": counts}
+
+
+def phase_train_cpu_gpu(specs, records):
+    """The ci preset for TRAIN_CPU_GPU_STEPS steps from the same parameters
+    and batches on cuda:0 (TF32 off) and on the CPU: losses within
+    TRAIN_CPU_GPU_RTOL."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.train.data import SyntheticCorpus
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train_lm import model_for, optimizer_for
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, shape, _ = model_for("ci")
+    steps = TRAIN_CPU_GPU_STEPS
+    host = params_to_jax(get_model(cfg).init(
+        torch.Generator().manual_seed(0), cfg))
+    batches = list(SyntheticCorpus(cfg.vocab_size, 0).batches(
+        shape.global_batch, shape.seq_len, steps))
+    losses, walls = {}, {}
+    with MainPath(specs, records, ("flash_attention",)) as mp:
+        for dev in (CARD, "cpu"):
+            tr = Trainer(cfg, ParallelConfig(), shape, optimizer_for(steps),
+                         device=dev)
+            (_, losses[dev]), walls[dev] = wall(lambda: tr.fit(
+                batches, steps, tr.state_from_jax(host), log_every=0))
+    counts = mp.counts()
+    if counts["flash_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times in {steps} "
+                             f"steps of {cfg.n_layers} layers")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[CARD],
+                                                   losses["cpu"]))
+    if rel > TRAIN_CPU_GPU_RTOL:
+        raise AssertionError(f"card and CPU losses differ by {rel} relative")
+    return {"preset": "ci", "steps": steps, "tf32": False,
+            "losses_cuda": losses[CARD], "losses_cpu": losses["cpu"],
+            "max_rel_diff": rel, "tolerance": TRAIN_CPU_GPU_RTOL,
+            "wall_s": walls, "launches": counts}
+
+
+def phase_train_task(specs, records):
+    """train_lm.train_task (the ci preset) as a task on the thread executor
+    with a checkpoint root: it saves every TASK_CKPT_EVERY steps through
+    comm.checkpoint and its first attempt raises after step TASK_FAIL_AT;
+    the retry must resume from the last save and finish.  The session's
+    trace goes through the port's Perfetto export."""
+    import os
+    import tempfile
+    from repro_torch.core import (ResourceManager, SchedulerSession,
+                                  TaskDescription, TaskState,
+                                  ThreadExecutor, logical_devices)
+    from repro_torch.obs import export_perfetto, load_trace
+    from repro_torch.train_lm import model_for, train_task
+    steps, every, fail = TASK_STEPS, TASK_CKPT_EVERY, TASK_FAIL_AT
+    with tempfile.TemporaryDirectory() as root:
+        trace = os.path.join(root, "train_task.jsonl")
+        sess = SchedulerSession(
+            ThreadExecutor(build_comm=False, tick=0.01),
+            ResourceManager(logical_devices(1, CARD)), tick=0.01,
+            ckpt_root=os.path.join(root, "ckpt"), trace_path=trace)
+        with MainPath(specs, records, ("flash_attention",)) as mp:
+            rep, s = wall(lambda: sess.run([TaskDescription(
+                name="train", ranks=1, fn=train_task, max_retries=1,
+                kwargs=dict(preset="ci", steps=steps, ckpt_every=every,
+                            fail_at=fail, device=CARD),
+                tags={"pipeline": "train"})], timeout=600))
+        doc = export_perfetto(load_trace(trace),
+                              os.path.join(root, "train_task.trace.json"))
+    counts = mp.counts()
+    task = rep.tasks[0]
+    want_resume = fail // every * every
+    if task.state != TaskState.DONE or rep.n_retries != 1 or \
+            task.resumed_from_step != want_resume or \
+            task.result["start_step"] != want_resume or \
+            task.result["step"] != steps:
+        raise AssertionError(f"train task: {task.state} {task.error}, "
+                             f"{rep.n_retries} retries, resumed from "
+                             f"{task.resumed_from_step}")
+    # the first attempt's steps and the retry's, one launch a layer each
+    want = model_for("ci")[0].n_layers * (fail + steps - want_resume)
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"train_task: flash_attention launched "
+                             f"{counts['flash_attention']} times, not {want}")
+    ev = doc["traceEvents"]
+    return {"steps": steps, "ckpt_every": every, "failed_after": fail,
+            "retries": rep.n_retries,
+            "resumed_from_step": task.resumed_from_step,
+            "resume_events": len(rep.events("resume")), "wall_s": s,
+            "losses_after_resume": task.result["losses"],
+            "perfetto": {"events": len(ev),
+                         "task_slices": sum(e["ph"] == "X" and
+                                            e.get("cat") == "task"
+                                            for e in ev),
+                         "instants": sum(e["ph"] == "i" for e in ev)},
+            "launches": counts}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1374,6 +1731,12 @@ def main() -> int:
     with MainPath(specs, records, scan) as mp:
         res = phase_serve_f32(SSM_ARCH)
     emit("serve_ssm_f32", launches=mp.counts(), **res)
+
+    free_device_memory()
+    emit("train_etl", **phase_train_etl(specs, records, gen))
+    emit("train_qwen3", **phase_train_qwen3(specs, records, gen))
+    emit("train_cpu_gpu", **phase_train_cpu_gpu(specs, records))
+    emit("train_task", **phase_train_task(specs, records))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

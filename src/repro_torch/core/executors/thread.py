@@ -23,7 +23,8 @@ class StubComm:
     raw_coll_bytes: int = 0      # nor ships raw/shm frames or forwards
     shm_bytes: int = 0           # ring blocks — constant zeros keep the
     ring_steps: int = 0          # transport counters uniform across backends
-    checkpoint: Any = None       # checkpoint context (a later slice)
+    checkpoint: Any = None       # CheckpointContext when the session runs
+    # with a checkpoint root (REPRO_CKPT_DIR); None otherwise
 
     @property
     def size(self) -> int:
@@ -43,11 +44,14 @@ class ThreadExecutor(QueueEventExecutor):
     def launch(self, task: Task, duration_hint: Optional[float] = None):
         def worker():
             comm_s = 0.0
+            ckpt = None
+            if task.ckpt_dir:
+                # in-process tasks always run as one part, so the p0-of-1
+                # scope interoperates with single-part proc attempts
+                from repro_torch.train.checkpoint import CheckpointContext
+                ckpt = CheckpointContext(task.ckpt_dir,
+                                         attempt=task.ckpt_attempt or "a0")
             try:
-                if task.ckpt_dir:
-                    raise NotImplementedError(
-                        "task checkpointing is not ported yet (ROADMAP "
-                        "modules item 7); run without a checkpoint root")
                 if self.build_comm:
                     from repro_torch.core.communicator import (
                         build_communicator)
@@ -60,12 +64,15 @@ class ThreadExecutor(QueueEventExecutor):
                 else:
                     comm = StubComm(devices=tuple(task.devices),
                                     placement=task.placement)
+                comm.checkpoint = ckpt
                 res = task.desc.fn(comm, *task.desc.args, **task.desc.kwargs)
-                self._q.put(ExecEvent("done", task=task, result=res,
-                                      comm_build_s=comm_s))
+                self._q.put(ExecEvent(
+                    "done", task=task, result=res, comm_build_s=comm_s,
+                    resumed_from_step=ckpt.resumed_from_step if ckpt else 0))
             except Exception as e:  # noqa: BLE001 — report any payload error
                 self._q.put(ExecEvent(
                     "fail", task=task, error=f"{type(e).__name__}: {e}",
-                    comm_build_s=comm_s))
+                    comm_build_s=comm_s,
+                    resumed_from_step=ckpt.resumed_from_step if ckpt else 0))
 
         threading.Thread(target=worker, daemon=True).start()

@@ -39,6 +39,7 @@ from repro_torch.core.executors.protocol import Channel, ConnectionClosed
 from repro_torch.core.executors.thread import StubComm
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import spans as _spans
+from repro_torch.train.checkpoint import CheckpointContext
 
 
 class CollectiveError(RuntimeError):
@@ -494,7 +495,8 @@ class ProcTaskComm:
         # telemetry always agree without double bookkeeping
         self.metrics = registry if registry is not None \
             else _metrics.MetricsRegistry()
-        self.checkpoint = None        # checkpoint context (a later slice)
+        self.checkpoint = None        # CheckpointContext bound by the worker
+        # when the LAUNCH carried a checkpoint namespace (REPRO_CKPT_DIR)
         self.raw_frames = raw_frames  # raw-body peer frames enabled (knob
         # for A/B benchmarking against the pickled PEER_DATA path)
         self.ring = ring              # ring allgather for wide tasks
@@ -1044,6 +1046,14 @@ class Worker:
         t_recv = d.pop("_recv_t", None)
         if t_recv is not None:
             rec.add("launch_recv", t_recv, time.perf_counter())
+        ckpt = None
+        if d.get("ckpt_dir"):
+            # per-(lineage, attempt, part) checkpoint handle — a retried or
+            # speculated attempt restores the previous attempt's durable
+            # steps from the shared part scope (see train.checkpoint)
+            ckpt = CheckpointContext(d["ckpt_dir"],
+                                     attempt=d.get("ckpt_attempt") or "a0",
+                                     part=part, n_parts=d["n_parts"])
 
         def stats() -> dict:
             return {"p2p_bytes": comm.p2p_bytes if comm else 0,
@@ -1053,15 +1063,12 @@ class Worker:
                     "raw_coll_bytes": comm.raw_coll_bytes if comm else 0,
                     "shm_bytes": comm.shm_bytes if comm else 0,
                     "ring_steps": comm.ring_steps if comm else 0,
-                    "resumed_from_step": 0,
+                    "resumed_from_step":
+                        ckpt.resumed_from_step if ckpt else 0,
                     "spans": rec.export()}
 
         clean = False
         try:
-            if d.get("ckpt_dir"):
-                raise NotImplementedError(
-                    "task checkpointing is not ported yet (ROADMAP modules "
-                    "item 7); run without a checkpoint root")
             devs = self._local_devices(d["local_devices"], d["build_comm"])
             if d["build_comm"]:
                 shape = d["mesh_shape"] if d["n_parts"] == 1 else None
@@ -1088,6 +1095,7 @@ class Worker:
                                 shm=d.get("shm", True),
                                 registry=_metrics.MetricsRegistry(
                                     parent=self.metrics))
+            comm.checkpoint = ckpt
             # the recorder is bound to THIS thread for the payload call, so
             # nested library code (comm collectives, shuffle SpillBuffer)
             # records spans without any parameter plumbing

@@ -19,6 +19,14 @@ the two agree only when Sq == Sk, so a causal call with Sq != Sk raises.
 
 A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
 through :func:`flash_attention_plain`, the same function in plain PyTorch.
+
+Training goes through :class:`FlashAttention`, an autograd Function whose
+forward is the wrapper (the kernel, on the card) and whose backward
+recomputes the attention with the plain function it is given and returns
+``torch.autograd.grad`` of it.  That plain function is the model's
+``attend_full`` or ``attend_blockwise``, whichever the JAX train step
+differentiates at the sequence length; the JAX package has no backward
+kernel either.
 """
 from __future__ import annotations
 
@@ -160,3 +168,27 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2).contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """``apply(q, k, v, causal, plain)``: forward through
+    :func:`flash_attention`; backward through autograd of ``plain(q, k, v,
+    causal=causal)`` recomputed from the saved inputs, so the gradients
+    are bit for bit those of ``plain``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, plain):
+        ctx.causal, ctx.plain = causal, plain
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*qkv, causal=ctx.causal)
+            wrt = [t for t in qkv if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(grads) if n else None for n in need), None, None)

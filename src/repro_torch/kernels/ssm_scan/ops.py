@@ -22,8 +22,10 @@ At the serving shapes, (1, 2048, 8192, 16) and the like, the function is
 bound by its exponentials: one exp per (b, s, d, n), B*S*D*N of them,
 against reading dt and x and writing y once.
 
-A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
-through :func:`ssm_scan_plain`, the same function in plain PyTorch; a
+A CUDA tensor goes through the kernel or the call raises (so does one that
+asks for a gradient: the kernel has no backward yet, and its output would
+drop it); a CPU tensor goes through :func:`ssm_scan_plain`, the same
+function in plain PyTorch, gradients included; a
 ``meta`` tensor (the serving engines' cache probe) gets ``meta`` results of
 the right shapes and launches nothing.
 """
@@ -122,6 +124,7 @@ def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
         return _empty(dt, A, return_state, "meta")
     if dev.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {dev}")
+    refuse_grad(dt, A, Bm, Cm, x)
     if dt.numel() == 0:
         y, h = _empty(dt, A, True, dev)
         y.zero_()
@@ -131,6 +134,16 @@ def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
 
 
 ssm_scan.launches = 0     # kernel launches since the last reset
+
+
+def refuse_grad(*tensors):
+    """Raise if a gradient is asked of any input: the kernel's output lies
+    outside autograd, and a silent zero gradient is worse than none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssm_scan has no backward on the card: SSM training on the card "
+            "is ROADMAP modules item 13 (an autograd path for ssm_scan); "
+            "train on the CPU or run under torch.no_grad()")
 
 
 def _empty(dt, A, return_state, device):

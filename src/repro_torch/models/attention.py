@@ -7,10 +7,12 @@ Three execution paths, mathematically identical:
   * kernels/flash_attention — the CUDA kernel, which ``attend`` launches for
                            every prefill and forward on a CUDA tensor
 
-On any other device ``attend`` follows the JAX package's dispatch (full up
-to ``q_block`` rows, blockwise beyond), so the CPU tests compare like with
-like; ``cache_batch_axes`` probes on the ``meta`` device through the same
-plain path.
+On a CUDA tensor ``attend`` goes through the kernel's autograd Function
+(``FlashAttention``): forward through the kernel, backward through autograd
+of the plain path below.  On any other device it takes that plain path:
+the JAX package's dispatch (full up to ``q_block`` rows, blockwise beyond),
+so the CPU tests compare like with like; ``cache_batch_axes`` probes on the
+``meta`` device through the same path.
 
 The decode path attends one new token against a padded KV cache with
 per-batch lengths, in plain PyTorch (the JAX package computes it outside any
@@ -19,10 +21,11 @@ Pallas kernel too).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import FlashAttention
 from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
                                        rope_sincos)
 
@@ -166,16 +169,24 @@ def cache_update(k_cache, v_cache, k_new, v_new, positions):
 
 @dataclasses.dataclass(frozen=True)
 class AttnMode:
-    """How the attention core executes off the card (on the card every
-    prefill and forward goes through the kernel)."""
+    """How the attention core executes off the card, and which plain path
+    the kernel's backward differentiates on it (on the card every prefill
+    and forward goes through the kernel)."""
     kind: str = "blockwise"   # full | blockwise
     q_block: int = 512
     kv_block: int = 512
 
 
 def attend(q, k, v, *, causal, mode: AttnMode):
+    plain = functools.partial(attend_plain, mode=mode)
     if q.is_cuda:
-        return flash_attention(q, k, v, causal=causal)
+        return FlashAttention.apply(q, k, v, causal, plain)
+    return plain(q, k, v, causal=causal)
+
+
+def attend_plain(q, k, v, *, causal, mode: AttnMode):
+    """The JAX package's ``attend``: full attention up to ``q_block`` query
+    rows, blockwise beyond."""
     if mode.kind == "full" or q.shape[1] <= mode.q_block:
         return attend_full(q, k, v, causal=causal)
     return attend_blockwise(q, k, v, causal=causal, q_block=mode.q_block,

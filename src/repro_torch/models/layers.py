@@ -21,8 +21,9 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def frozen(groups: dict) -> nn.ParameterDict:
-    """A parameter group under its JAX names, carrying no gradient (the port
-    serves; training is ROADMAP modules item 9)."""
+    """A parameter group under its JAX names, carrying no gradient: what
+    serving holds.  Training turns gradients on for the whole model
+    (``init(..., trainable=True)`` or ``model.requires_grad_()``)."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in groups.items()})
 

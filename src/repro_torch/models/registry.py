@@ -1,14 +1,18 @@
-"""Uniform model API across families.
+"""Uniform model API across families + batch construction helpers.
 
-Every family exposes ``init(gen, cfg)`` / ``forward`` / ``loss_fn`` /
-``prefill`` / ``decode_step`` / ``cache_init`` with dict batches, as in the
-JAX package, so the serving engines treat every arch alike.  The port has
-the dense family and the SSM family (Mamba1); the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every family exposes ``init(gen, cfg[, trainable])`` / ``forward`` /
+``loss_fn`` / ``prefill`` / ``decode_step`` / ``cache_init`` with dict
+batches, as in the JAX package, so the trainer and the serving engines
+treat every arch alike.  The port has the dense family and the SSM family
+(Mamba1); the others raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
 
 from repro_torch.models import ssm_lm, transformer
 
@@ -44,3 +48,32 @@ def get_model(cfg) -> ModelApi:
     return ModelApi(mod.init, mod.forward, mod.loss_fn, mod.prefill,
                     mod.decode_step, mod.cache_init)
 
+
+
+# ----------------------------------------------------------------------------
+# batch builders (the JAX package's, with torch dtypes)
+# ----------------------------------------------------------------------------
+def train_batch_shapes(cfg, batch: int, seq: int) -> dict[str, Any]:
+    shapes = {"tokens": ((batch, seq), torch.int32),
+              "labels": ((batch, seq), torch.int32)}
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP modules {_NOT_PORTED[cfg.family]})")
+    return shapes
+
+
+def make_concrete_batch(shapes, rng: np.random.Generator, vocab: int,
+                        device=None) -> dict:
+    """Tensors on ``device`` drawn with numpy as the JAX package draws them,
+    so one seed gives both packages the same batch."""
+    out = {}
+    for name, (shape, dtype) in shapes.items():
+        if dtype == torch.int32:
+            hi = vocab if name in ("tokens", "labels") else \
+                max(np.prod(shape), 2)
+            a = rng.integers(0, hi, size=shape, dtype=np.int32)
+        else:
+            a = rng.normal(size=shape).astype(np.float32)
+        out[name] = torch.from_numpy(a).to(device=device, dtype=dtype)
+    return out

@@ -57,9 +57,11 @@ def _check_family(cfg):
     ssm.check_scan_dtype(cfg)
 
 
-def init(gen, cfg) -> MambaLM:
+def init(gen, cfg, trainable: bool = False) -> MambaLM:
     """Random parameters on ``gen.device``, drawn one tensor at a time in
-    f32 and cast to ``cfg.dtype`` (``A_log`` and ``D`` stay f32)."""
+    f32 and cast to ``cfg.dtype`` (``A_log`` and ``D`` stay f32);
+    ``trainable`` turns their gradients on (training through the CUDA scan
+    raises: ``kernels/ssm_scan/ops.py``)."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
 
@@ -70,7 +72,7 @@ def init(gen, cfg) -> MambaLM:
               for _ in range(cfg.n_layers)]
     embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                        cfg.tie_embeddings)
-    return MambaLM(cfg, embed, ones(), layers)
+    return MambaLM(cfg, embed, ones(), layers).requires_grad_(trainable)
 
 
 def forward(params, cfg, batch, mode: AttnMode = AttnMode()):

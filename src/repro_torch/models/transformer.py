@@ -5,8 +5,11 @@ The model is an ``nn.Module`` whose parameter groups are
 (d, H, hd), ``wo`` (H, hd, d), ``wg``/``wi`` (d, f), ``embedding`` (V, d),
 ``lm_head`` (d, V)), so the functions below read like their JAX twins.
 Layers are an ``nn.ModuleList`` walked in a Python loop, not a stacked
-scan.  Parameters carry no gradient: the port serves; training is a later
-slice (ROADMAP modules item 9).
+scan.  Parameters carry no gradient unless the model is built trainable
+(``init(..., trainable=True)`` or ``model.requires_grad_()``); serving
+keeps them frozen.  ``cfg.remat`` wraps each layer of a forward that
+records gradients in ``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint`` of its scan body: it changes memory, not numbers.
 
 The KV cache keeps the JAX layout, ``(n_layers, 1, B, smax, K, hd)`` for
 ``k`` and ``v`` (the 1 is the JAX superblock period of a dense stack), so
@@ -17,6 +20,7 @@ place and returns it.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
@@ -77,9 +81,10 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def init(gen: torch.Generator, cfg) -> Transformer:
+def init(gen: torch.Generator, cfg, trainable: bool = False) -> Transformer:
     """Random parameters on ``gen.device``, drawn one tensor at a time in
-    f32 and cast to ``cfg.dtype`` (no f32 copy of the whole model exists)."""
+    f32 and cast to ``cfg.dtype`` (no f32 copy of the whole model exists);
+    ``trainable`` turns their gradients on."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
 
@@ -94,7 +99,7 @@ def init(gen: torch.Generator, cfg) -> Transformer:
               for _ in range(cfg.n_layers)]
     embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                        cfg.tie_embeddings)
-    return Transformer(cfg, embed, ones(), layers)
+    return Transformer(cfg, embed, ones(), layers).requires_grad_(trainable)
 
 
 # ----------------------------------------------------------------------------
@@ -119,12 +124,21 @@ def _embed_input(params, tokens):
     return x, positions
 
 
+def _layer(layer, x, positions, cfg, mode):
+    x, _ = _attn_sub(layer.attn, x, positions, cfg, mode)
+    return _ffn_sub(layer.mlp, x, cfg)
+
+
 def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
     """batch: tokens (B,S).  Returns logits (B, S, V)."""
     x, positions = _embed_input(params, batch["tokens"])
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in params.layers:
-        x, _ = _attn_sub(layer.attn, x, positions, cfg, mode)
-        x = _ffn_sub(layer.mlp, x, cfg)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, layer, x, positions, cfg, mode, use_reentrant=False)
+        else:
+            x = _layer(layer, x, positions, cfg, mode)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return logits_apply(params.embed, x, cfg.tie_embeddings)
 

@@ -1,4 +1,4 @@
-"""Flight recorder, as far as this slice of the port needs it:
+"""Flight recorder:
 
 * ``spans``   — the per-part timing API (the out-of-core shuffle records
   ``spill_write`` and ``merge`` spans through the thread-bound recorder).
@@ -6,10 +6,12 @@
 * ``trace``   — ``TraceWriter`` (crash-safe line-buffered JSONL via
   ``REPRO_TRACE`` / ``SchedulerSession(trace_path=)``), ``load_trace``,
   and replay through ``VirtualClockExecutor``.
-
-The Perfetto export of the JAX package is a later slice.
+* ``perfetto`` — Chrome/Perfetto ``trace.json`` export with one row per
+  worker/device lane plus counter tracks
+  (``python -m repro_torch.obs.perfetto run.jsonl``).
 """
 from repro_torch.obs.metrics import MetricsRegistry, rss_mb
+from repro_torch.obs.perfetto import export_perfetto
 from repro_torch.obs.spans import (NullRecorder, SpanRecorder, align, bound,
                                    current_recorder, set_current)
 from repro_torch.obs.trace import (RecordedTrace, TraceWriter, load_trace,
@@ -17,6 +19,6 @@ from repro_torch.obs.trace import (RecordedTrace, TraceWriter, load_trace,
 
 __all__ = [
     "MetricsRegistry", "NullRecorder", "RecordedTrace", "SpanRecorder",
-    "TraceWriter", "align", "bound", "current_recorder", "load_trace",
-    "resolve_trace_path", "rss_mb", "set_current",
+    "TraceWriter", "align", "bound", "current_recorder", "export_perfetto",
+    "load_trace", "resolve_trace_path", "rss_mb", "set_current",
 ]

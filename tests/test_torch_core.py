@@ -171,14 +171,24 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
 
 
 def test_thread_executor_refuses_checkpointing_not_yet_ported(tmp_path):
+    """Checkpointing is ported now: with a checkpoint root the task gets a
+    CheckpointContext of its lineage, attempt and part, and its save lands
+    under ``t<uid>/p0-of-1/a0``."""
+    from repro_torch.train.checkpoint import CheckpointContext, latest_step
+
+    def pay(comm):
+        assert isinstance(comm.checkpoint, CheckpointContext)
+        comm.checkpoint.save(3, {"x": torch.ones(2)})
+        return 1
+
     sess = T.SchedulerSession(T.ThreadExecutor(tick=0.01),
                               T.ResourceManager(T.logical_devices(1, "cpu")),
                               ckpt_root=str(tmp_path))
-    rep = sess.run([T.TaskDescription(name="t", ranks=1, fn=lambda c: 1,
+    rep = sess.run([T.TaskDescription(name="t", ranks=1, fn=pay,
                                       max_retries=0)], timeout=30)
     task = rep.tasks[0]
-    assert task.state == T.TaskState.FAILED
-    assert "NotImplementedError" in task.error and "ROADMAP" in task.error
+    assert task.state == T.TaskState.DONE, task.error
+    assert latest_step(tmp_path / f"t{task.uid}" / "p0-of-1" / "a0") == 3
 
 
 def test_serialize_ships_torch_tensors_as_raw_arrays():

@@ -628,3 +628,101 @@ def test_peer_frames_carry_cuda_tensors(cuda, tier):
     assert np.array_equal(back["x"].view(np.int32),
                           x.cpu().numpy().view(np.int32))
     assert back["h"].device == h.device and torch.equal(back["h"], h)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,h,kh,hd,dtype,mode", [
+    (2, 128, 4, 2, 16, torch.float32, "full"),
+    (1, 300, 8, 2, 64, torch.float32, "blockwise"),
+    (1, 256, 8, 8, 128, torch.bfloat16, "full"),
+    (1, 1024, 8, 2, 128, torch.bfloat16, "blockwise"),
+])
+def test_flash_attention_grads_are_plain_autograd_bit_for_bit(
+        cuda, b, s, h, kh, hd, dtype, mode):
+    """The autograd Function launches the kernel forward, and its gradients
+    are those of autograd through the plain path, bit for bit."""
+    import functools
+    from repro_torch.models.attention import AttnMode, attend_plain
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda).to(
+        dtype).requires_grad_() for n in (h, kh, kh))
+    g = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    am = AttnMode(kind="full") if mode == "full" else \
+        AttnMode(q_block=128, kv_block=128)
+    plain = functools.partial(attend_plain, mode=am)
+    before = fa.flash_attention.launches
+    out = fa.FlashAttention.apply(q, k, v, True, plain)
+    assert out.grad_fn is not None
+    assert fa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(plain(q, k, v, causal=True), (q, k, v), g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), fa.flash_attention_plain(
+        q.detach(), k.detach(), v.detach()).float(), rtol=tol, atol=tol)
+
+
+def test_attend_keeps_cuda_attention_inside_autograd(cuda):
+    """A model's attention on the card carries a gradient to wq, wk, wv and
+    the qk norms; the same loss on the CPU gives the same gradients."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.models.attention import AttnMode
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("qwen3-8b")), n_layers=2)
+    gen = torch.Generator().manual_seed(0)
+    host = params_to_jax(get_model(cfg).init(gen, cfg))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64), dtype=np.int32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        model = params_from_jax(host, cfg, dev).requires_grad_()
+        batch = {"tokens": tok.to(dev), "labels": tok.to(dev)}
+        before = fa.flash_attention.launches
+        get_model(cfg).loss_fn(model, cfg, batch,
+                               AttnMode(kind="full")).backward()
+        if dev == cuda:
+            assert fa.flash_attention.launches == before + cfg.n_layers
+        grads[str(dev)] = {k: p.grad.cpu() for k, p in
+                           model.named_parameters()}
+    for k, g in grads["cpu"].items():
+        assert grads["cuda:0"][k].abs().max() > 0, k
+        torch.testing.assert_close(grads["cuda:0"][k], g, rtol=1e-4,
+                                   atol=1e-5 * float(g.abs().max()) + 1e-7)
+
+
+def test_ssm_scan_refuses_a_gradient_on_the_card(cuda):
+    dt, A, Bm, Cm, x = _ssm_inputs(cuda, 1, 8, 64, 16, "f32")
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP modules item 13"):
+        ssm_ops.ssm_scan(dt, A, Bm, Cm, x)
+    with torch.no_grad():
+        ssm_ops.ssm_scan(dt, A, Bm, Cm, x)
+
+
+def test_trainer_steps_and_resumes_on_the_card(cuda, tmp_path):
+    """Trainer.fit on the card: the loss falls, every step launches the
+    kernel once a layer, and a fresh trainer restores the step-4 state bit
+    for bit."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.train.data import SyntheticCorpus
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train_lm import model_for, optimizer_for
+    cfg, shape, _ = model_for("ci")
+    tr = Trainer(cfg, ParallelConfig(), shape, optimizer_for(8),
+                 ckpt_dir=str(tmp_path), ckpt_every=4, device=cuda)
+    before = fa.flash_attention.launches
+    state, losses = tr.fit(SyntheticCorpus(cfg.vocab_size).batches(
+        shape.global_batch, shape.seq_len, 8), 8, log_every=0)
+    assert fa.flash_attention.launches == before + 8 * cfg.n_layers
+    assert losses[-1] < losses[0] and all(np.isfinite(losses))
+    back = Trainer(cfg, ParallelConfig(), shape, optimizer_for(8),
+                   ckpt_dir=str(tmp_path), device=cuda).maybe_restore()
+    assert back.step == 8
+    for a, b in zip(back.params.parameters(), state.params.parameters()):
+        assert torch.equal(a, b)

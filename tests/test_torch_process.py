@@ -511,17 +511,26 @@ def test_process_executor_smoke_spanning_task_matches_jax():
     assert (res, kinds, devices) == _smoke(J)
 
 
+def _ckpt_save(comm):
+    comm.checkpoint.save(4, {"x": np.ones(2)})
+    return type(comm.checkpoint).__name__, comm.checkpoint.attempt
+
+
 @needs_cloudpickle
 def test_checkpoint_root_fails_part_with_not_implemented(tmp_path):
+    """Checkpointing is ported now: a worker binds a CheckpointContext for
+    the part, whose save lands under ``t<uid>/p0-of-1/a0``."""
+    from repro_torch.train.checkpoint import latest_step
     with T.ProcessExecutor(n_workers=1, devices_per_worker=1,
                            device=CPU) as ex:
         sess = T.SchedulerSession(ex, ex.resource_manager(), tick=0.02,
                                   ckpt_root=str(tmp_path))
-        rep = sess.run([T.TaskDescription(name="t", ranks=1, fn=_devs,
+        rep = sess.run([T.TaskDescription(name="t", ranks=1, fn=_ckpt_save,
                                           max_retries=0)], timeout=60)
     task = rep.tasks[0]
-    assert task.state == T.TaskState.FAILED
-    assert "NotImplementedError" in task.error and "ROADMAP" in task.error
+    assert task.state == T.TaskState.DONE, task.error
+    assert task.result == ("CheckpointContext", "a0")
+    assert latest_step(tmp_path / f"t{task.uid}" / "p0-of-1" / "a0") == 4
 
 
 # ---------------------------------------------------------------------------
