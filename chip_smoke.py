@@ -52,6 +52,24 @@ Phases, one JSON line each:
   serve_ssm_f32  falcon-mamba-7b's widths with 2 layers in float32 (TF32
             off for matmuls and cuDNN): the continuous engine's tokens equal
             the full-forward oracle's
+  serve_moe qwen2-moe-a2.7b at its published widths in bf16 (24 layers, 60
+            experts top-4, 4 shared; 14.3 B parameters), the same two acts,
+            requests and timings as serve; flash_attention launches once
+            per layer per prefill; then the share of (token, expert) pairs
+            dropped at the published capacity factor 1.25 in one prefill of
+            1, 2 (act 1's batch) and 4 x 2048 tokens
+  serve_moe_f32  qwen2-moe's widths with 2 layers in float32, the capacity
+            factor raised to n_experts / top_k so that no pair drops: the
+            continuous engine's tokens equal the full-forward oracle's, 0
+            pairs dropped; then one MoE layer at cf 1.25 with T = 2048 and
+            8192 tokens drawn around one shared vector, so that pairs drop:
+            moe_ffn within 1e-5 of the largest |output| of the dense oracle
+            with the same dropped pairs masked out
+  serve_llama4  llama4-maverick at its published widths on one superblock
+            (a dense layer of d_ff 16384 and an MoE layer of 128 experts,
+            18.7 B parameters with the embeddings), bf16: ServeEngine
+            serves 4 requests of 512-2048 tokens, 16 new tokens each,
+            flash_attention twice a prefill; prefill and decode times
   sort      bitonic_sort's own path, the row sorts of the JAX package's
             benchmark (4 rows of 2^18 int32 keys in [0, 2^30),
             benchmarks/bench_kernels.py) and of its test sweep, through the
@@ -67,9 +85,12 @@ Phases, one JSON line each:
             the ETL stage called it at
   train_qwen3  qwen3-8b at its published widths in bf16, 4 of its 36 layers,
             5 AdamW steps on one batch of 1 x 2048 tokens: the loss falls,
-            step time and peak memory; then the attention Function's q, k
-            and v gradients bit-equal to autograd of the plain path at
-            (1, 2048, 32, 8, 128) bf16
+            step time and peak memory (under 80 GB); then the attention
+            Function's q, k and v gradients bit-equal to autograd of the
+            plain path at (1, 2048, 32, 8, 128) bf16
+  train_moe qwen2-moe-a2.7b at its published widths in bf16, 4 of its 24
+            layers (2.90 B parameters), the same 5 steps: the loss falls,
+            step time, peak memory under 80 GB
   train_cpu_gpu  the ci preset, 10 steps from the same parameters and
             batches on cuda:0 (TF32 off) and on the CPU: losses within 1e-4
             relative
@@ -79,13 +100,14 @@ Phases, one JSON line each:
             after step 12, the retry resumes from step 10 and finishes; the
             session's trace exported by the port's Perfetto export
 
-The main-path phases (dist, pipeline, shuffle, process, the four serve
-phases, sort and the four train phases)
+The main-path phases (dist, pipeline, shuffle, process, the seven serve
+phases, sort and the five train phases)
 each start with every kernel's launch count at 0 and fail unless each
-kernel that the phase's path runs launched (serve_ssm: exactly once per
-layer per prefill; the train phases: flash_attention once per layer per
-forward, twice under remat).  Then come the kernel summary line, the card's name
-and power limit as nvidia-smi gives them, and last
+kernel that the phase's path runs launched (serve_ssm, serve_moe and
+serve_llama4: exactly once per layer per prefill; the train phases:
+flash_attention once per layer per forward, twice under remat).  Then
+come the kernel summary line, the card's name and power limit as
+nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero at once.
 """
@@ -118,10 +140,18 @@ SERVE_PROMPTS = [2048, 2048, 1024, 1024, 512, 512, 1536, 768]
 SERVE_BUDGETS = [16, 32] * 4    # max_new_tokens of each serve request
 SERVE_MAX_BATCH, SERVE_MAX_SEQ = 4, 4096
 F32_PROMPTS, F32_NEW = [300, 77, 129], 8      # the f32 token check
-CARD = "cuda:0"                 # the train phases' device
+MOE_ARCH = "qwen2-moe-a2.7b"
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+MOE_DROP_BATCHES, MOE_DROP_SEQ = (1, 2, 4), 2048  # prefills whose drops count
+MOE_ORACLE_TOKENS = (2048, 8192)    # moe_ffn against the masked dense oracle
+MOE_ORACLE_RTOL = 1e-5          # of the oracle output's largest magnitude
+LLAMA4_PROMPTS, LLAMA4_NEW = [512, 1024, 1536, 2048], 16
+LLAMA4_DECODE_FROM = 512        # the prompt length its decode rounds follow
+TRAIN_MOE_LAYERS = 4
+CARD = "cuda:0"                 # the device of the train and MoE phases
 TRAIN_ETL_STEPS, TRAIN_ETL_SAVED, TRAIN_ETL_EVERY = 60, 40, 20
 TRAIN_RESUME_RTOL = 1e-5        # resumed against uninterrupted losses
-TRAIN_QWEN3_LAYERS, TRAIN_QWEN3_SEQ, TRAIN_QWEN3_STEPS = 4, 2048, 5
+TRAIN_QWEN3_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 TRAIN_CPU_GPU_STEPS, TRAIN_CPU_GPU_RTOL = 10, 1e-4
 TASK_STEPS, TASK_CKPT_EVERY, TASK_FAIL_AT = 20, 5, 12
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
@@ -434,7 +464,26 @@ def _attention_spec():
             *((sh.global_batch, c.n_heads, c.n_kv_heads, sh.seq_len,
                c.head_dim, f32) for c, sh, _ in map(model_for,
                                                     ("full", "ci"))),
+            # qwen2-moe (16 heads, 16 kv heads): serve_moe's prefills as
+            # serve's, its drop counts' B x 2048 prefills and train_moe's
+            # forward (1 x 2048); serve_moe_f32's as serve_f32's
+            *((1, 16, 16, s, 128, bf16) for s in sorted(set(SERVE_PROMPTS),
+                                                        reverse=True)),
+            *((2, 16, 16, s, 128, bf16) for s in sorted(
+                {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
+            *((b, 16, 16, MOE_DROP_SEQ, 128, bf16) for b in MOE_DROP_BATCHES
+              if b > 2),
+            *((1, 16, 16, s + d, 128, f32) for s in F32_PROMPTS
+              for d in range(F32_NEW)),
+            # llama4-maverick (40 heads, 8 kv heads): serve_llama4's
+            # prefills, and the 4 x 512 one its decode rounds start from
+            *((1, 40, 8, s, 128, bf16) for s in LLAMA4_PROMPTS),
+            (SERVE_MAX_BATCH, 40, 8, LLAMA4_DECODE_FROM, 128, bf16),
         ),
+        # the dense prefill's shape (the summary line's), then a 2048-token
+        # prefill of qwen2-moe and of llama4-maverick
+        "timed": ((1, 32, 8, 2048, 128, bf16), (1, 16, 16, 2048, 128, bf16),
+                  (1, 40, 8, 2048, 128, bf16)),
         "sweep": tuple(
             (b, h, kh, s, hd, dtype)
             for b, s, h, kh, hd in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64),
@@ -1263,10 +1312,11 @@ def serve_timings(engine, reqs):
                 lambda: engine.prefill_request(longest))}
 
 
-def run_serve(arch, specs, records, kernels):
+def run_serve(arch, specs, records, kernels, extra=None):
     """``arch`` at its published widths in bf16 through phase_serve under
-    MainPath(``kernels``), then its timings.  Returns the phase's record
-    and the launch counts of the main-path run; frees the weights."""
+    MainPath(``kernels``), then its timings and ``extra(cfg, params)``'s
+    record, if given.  Returns the phase's record and the launch counts of
+    the main-path run."""
     from repro_torch.configs import get_config
     from repro_torch.core import logical_devices
     from repro_torch.models.transformer import param_count
@@ -1286,6 +1336,8 @@ def run_serve(arch, specs, records, kernels):
                                         logical_devices(N_RANKS, "cuda:0"))
     counts = mp.counts()
     res.update(serve_timings(engine, reqs))
+    if extra is not None:
+        res.update(extra(cfg, params))
     res.update(arch=arch, n_layers=cfg.n_layers,
                param_count=param_count(params), weights_gb=weights_gb,
                init_s=init_s, launches=counts, allocated_gb_at_start=start_gb,
@@ -1301,10 +1353,11 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
-def phase_serve_f32(arch):
-    """``arch``'s widths, 2 layers, float32: the continuous engine (prefill
-    through the kernels, plain decode) against greedy_reference (a full
-    forward through the kernels per token), token for token."""
+def phase_serve_f32(arch, **overrides):
+    """``arch``'s widths, 2 layers, float32 (and ``overrides`` of its
+    config): the continuous engine (prefill through the kernels, plain
+    decode) against greedy_reference (a full forward through the kernels
+    per token), token for token."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serve import ContinuousEngine, greedy_reference
@@ -1313,7 +1366,8 @@ def phase_serve_f32(arch):
     # TF32 would keep about three digits and let near-tied logits flip
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              **overrides)
     free_device_memory()
     params = serve_model(cfg)
     reqs = make_requests(cfg, F32_PROMPTS, [F32_NEW] * len(F32_PROMPTS),
@@ -1327,6 +1381,200 @@ def phase_serve_f32(arch):
     return {"arch": arch, "layers": 2, "dtype": "float32",
             "prompt_lengths": F32_PROMPTS, "max_new_tokens": F32_NEW,
             "tokens_equal_oracle": True, "tf32": False}
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: qwen2-moe-a2.7b and one superblock of llama4-maverick at
+# their published widths
+# ---------------------------------------------------------------------------
+class MoEDrops:
+    """While inside, count the (token, expert) pairs of every moe_ffn call
+    on the card and the pairs it drops past the call's capacity, by routing
+    each call's tokens once more beside it (a measurement, outside the
+    call)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig = moe, moe.moe_ffn
+        self.calls, self.pairs, self._dropped = 0, 0, []
+
+        def counting(p, x, cfg):
+            if x.device.type != "meta":     # the engines' layout probe
+                xt = x.reshape(-1, x.shape[-1])
+                cap = moe.capacity(xt.shape[0], cfg)
+                idx, _ = moe.route(p, xt, cfg)
+                _, pos = moe.dispatch_indices(idx, cfg.n_experts, cap)
+                self.calls += 1
+                self.pairs += pos.numel()
+                self._dropped.append((pos >= cap).sum())
+            return self.orig(p, x, cfg)
+        moe.moe_ffn = counting
+        return self
+
+    def __exit__(self, *_):
+        self.mod.moe_ffn = self.orig
+        return False
+
+    def record(self) -> dict:
+        dropped = int(sum(int(d) for d in self._dropped))
+        return {"moe_calls": self.calls, "pairs": self.pairs,
+                "dropped": dropped,
+                "dropped_share": dropped / max(self.pairs, 1)}
+
+
+def moe_drop_shares(cfg, params) -> dict:
+    """The share of pairs dropped at ``cfg``'s capacity factor over every
+    MoE layer of one prefill of B x 2048 tokens, B in MOE_DROP_BATCHES
+    (act 1 prefills the two 2048-token prompts as one batch of 2; a full
+    batch is SERVE_MAX_BATCH)."""
+    from repro_torch.models import get_model
+    api, rng = get_model(cfg), np.random.default_rng(7)
+    out = {}
+    with torch.inference_mode():
+        for b in MOE_DROP_BATCHES:
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, MOE_DROP_SEQ))).to(CARD)
+            with MoEDrops() as drops:
+                api.prefill(params, cfg, {"tokens": toks}, MOE_DROP_SEQ)
+            out[f"{b}x{MOE_DROP_SEQ}"] = drops.record()
+    return {"capacity_factor": cfg.capacity_factor, "drops": out}
+
+
+def moe_oracle_check(gen) -> dict:
+    """One MoE layer at qwen2-moe's widths in f32 (TF32 off), cf 1.25:
+    moe_ffn on the card against moe_ffn_dense_oracle with the pairs moe_ffn
+    drops masked out, for MOE_ORACLE_TOKENS tokens, within MOE_ORACLE_RTOL
+    of the oracle output's largest magnitude.  The tokens share one random
+    vector plus unit noise each, so that routing is skewed and pairs drop
+    (independent normal tokens overflow no expert at cf 1.25, and the check
+    would not reach the drop path)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    p = moe.moe_init(gen, cfg, torch.float32)
+    rows = []
+    with torch.inference_mode():
+        for t in MOE_ORACLE_TOKENS:
+            x = torch.randn((t, cfg.d_model), generator=gen, device=CARD) \
+                + torch.randn((cfg.d_model,), generator=gen, device=CARD)
+            cap = moe.capacity(t, cfg)
+            idx, _ = moe.route(p, x, cfg)
+            _, pos = moe.dispatch_indices(idx, cfg.n_experts, cap)
+            keep = (pos < cap).view(t, cfg.top_k)
+            got = moe.moe_ffn(p, x, cfg)
+            want = moe.moe_ffn_dense_oracle(p, x, cfg, keep)
+            err, scale = float((got - want).abs().max()), \
+                float(want.abs().max())
+            if not err <= MOE_ORACLE_RTOL * scale:
+                raise AssertionError(f"moe_ffn at T={t} is {err} from the "
+                                     f"masked oracle (largest |out| {scale})")
+            if keep.all():
+                raise AssertionError(f"no pair dropped at T={t}: the check "
+                                     f"did not reach the drop path")
+            rows.append({"tokens": t, "capacity": cap,
+                         "dropped": int((~keep).sum()),
+                         "dropped_share": float((~keep).float().mean()),
+                         "max_abs_err": err, "max_abs_out": scale})
+    return {"capacity_factor": cfg.capacity_factor,
+            "tolerance": f"{MOE_ORACLE_RTOL} x max |oracle|", "checks": rows}
+
+
+def phase_serve_moe_f32(gen):
+    """qwen2-moe's widths, 2 layers, f32 (phase_serve_f32) with the
+    capacity factor raised to n_experts / top_k, so that C >= T and no pair
+    drops: the oracle re-runs the whole sequence at another token count,
+    and a drop there would change its answer, not the engine's.  Then the
+    drop path itself, at cf 1.25, against the masked dense oracle."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    no_drop = cfg.n_experts / cfg.top_k
+    with MoEDrops() as drops:
+        res = phase_serve_f32(MOE_ARCH, capacity_factor=no_drop)
+    rec = drops.record()
+    if rec["dropped"] or not rec["pairs"]:
+        raise AssertionError(f"the f32 token check dropped pairs: {rec}")
+    return {**res, "capacity_factor": no_drop,
+            "capacity_factor_note": f"raised from {cfg.capacity_factor} "
+                                    f"so that no pair drops",
+            "routing": rec, "drop_path": moe_oracle_check(gen)}
+
+
+def phase_serve_llama4(specs, records):
+    """llama4-maverick at its published widths on one superblock (2 of 48
+    layers: a dense layer of d_ff 16384, then an MoE layer of 128 experts),
+    bf16: ServeEngine serves LLAMA4_PROMPTS with LLAMA4_NEW new tokens
+    each, one prefill per length, flash_attention twice a prefill; then
+    prefill ms per length, decode ms per round with SERVE_MAX_BATCH live
+    rows, and a profile of one 2048-token prefill."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import param_count
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve_lm import make_requests
+    cfg = dataclasses.replace(get_config(LLAMA4_ARCH),
+                              n_layers=get_config(LLAMA4_ARCH)
+                              .moe_layer_period)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = wall(lambda: serve_model(cfg))
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    max_seq = max(LLAMA4_PROMPTS) + LLAMA4_NEW
+    ServeEngine(cfg, params, max_batch=1, max_seq=128).run_requests(
+        [Request(prompt=np.arange(64, dtype=np.int32), max_new_tokens=2)])
+    reqs = make_requests(cfg, LLAMA4_PROMPTS,
+                         [LLAMA4_NEW] * len(LLAMA4_PROMPTS), seed=2)
+    engine = ServeEngine(cfg, params, max_batch=SERVE_MAX_BATCH,
+                         max_seq=max_seq)
+    with MainPath(specs, records, ("flash_attention",)) as mp:
+        out, serve_s = wall(lambda: engine.run_requests(reqs))
+    counts = mp.counts()
+    _check_tokens(cfg, reqs, out, "serve_llama4")
+    want = cfg.n_layers * len(set(LLAMA4_PROMPTS))
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"serve_llama4: flash_attention launched "
+                             f"{counts['flash_attention']} times, not {want}")
+    api = get_model(cfg)
+    rng = np.random.default_rng(3)
+
+    def tokens(b, n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (b, n))).to(CARD)
+    with torch.inference_mode():
+        prefill_ms = {n: statistics.median(
+            wall(lambda: api.prefill(params, cfg, {"tokens": tokens(1, n)},
+                                     max_seq))[1] * 1e3 for _ in range(3))
+            for n in LLAMA4_PROMPTS}
+        cache, logits = api.prefill(params, cfg, {"tokens": tokens(
+            SERVE_MAX_BATCH, LLAMA4_DECODE_FROM)}, max_seq)
+        pos = torch.full((SERVE_MAX_BATCH,), LLAMA4_DECODE_FROM, device=CARD)
+        rounds = []
+        for i in range(12):
+            nxt = logits.argmax(-1)[:, None]
+            (logits, cache), t = wall(lambda: api.decode_step(
+                params, cfg, {"tokens": nxt, "positions": pos + i}, cache))
+            rounds.append(t * 1e3)
+        prof = profile(lambda: api.prefill(
+            params, cfg, {"tokens": tokens(1, max(LLAMA4_PROMPTS))}, max_seq))
+    tokens_out = len(reqs) * LLAMA4_NEW
+    return {"arch": LLAMA4_ARCH, "n_layers": cfg.n_layers,
+            "layers_of": get_config(LLAMA4_ARCH).n_layers,
+            "groups": [layer.group for layer in params.layers],
+            "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+            "d_ff": cfg.d_ff, "d_ff_dense": cfg.d_ff_dense,
+            "param_count": param_count(params), "weights_gb": weights_gb,
+            "init_s": init_s, "prompt_lengths": LLAMA4_PROMPTS,
+            "max_new_tokens": LLAMA4_NEW, "serve_wall_s": serve_s,
+            "tokens_per_s": tokens_out / serve_s,
+            "flash_attention_launches_per_prefill": cfg.n_layers,
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_round": statistics.median(rounds[2:]),
+            "decode_live_rows": SERVE_MAX_BATCH,
+            "profile_prefill_2048": prof,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts}
 
 
 def phase_sort(gen):
@@ -1495,24 +1743,19 @@ def phase_train_etl(specs, records, gen):
     return out
 
 
-def phase_train_qwen3(specs, records, gen):
-    """qwen3-8b at its published widths in bf16, TRAIN_QWEN3_LAYERS of its
-    layers: TRAIN_QWEN3_STEPS AdamW steps on one fixed batch of 1 x
-    TRAIN_QWEN3_SEQ tokens.  Then the attention Function's gradients held
-    bit-equal to autograd through the plain path the train step
-    differentiates at that length."""
+def train_published(specs, records, arch, n_layers) -> tuple:
+    """``arch`` at its published widths in bf16, ``n_layers`` of its
+    layers: TRAIN_STEPS AdamW steps on one fixed batch of 1 x
+    TRAIN_SEQ tokens, flash_attention once a layer a forward (twice
+    under remat); the loss must fall.  Returns the record and the
+    trainer's attention mode."""
     import dataclasses
-    import functools
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
-    from repro_torch.distributed.steps import _attn_mode
-    from repro_torch.kernels.flash_attention.ops import FlashAttention
     from repro_torch.models import make_concrete_batch, train_batch_shapes
-    from repro_torch.models.attention import attend_plain
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import Trainer
-    cfg = dataclasses.replace(get_config(SERVE_ARCH),
-                              n_layers=TRAIN_QWEN3_LAYERS)
-    s, steps = TRAIN_QWEN3_SEQ, TRAIN_QWEN3_STEPS
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    s, steps = TRAIN_SEQ, TRAIN_STEPS
     shape = ShapeConfig("t", "train", s, 1)
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
@@ -1538,11 +1781,36 @@ def phase_train_qwen3(specs, records, gen):
         raise AssertionError(f"the loss did not fall: {losses}")
     params = sum(p.numel() for p in state.params.parameters())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if peak_gb >= 80:
+        raise AssertionError(f"{arch}: a step's peak is {peak_gb} GB")
     split = split_step(tr, state, batch)
+    mode = tr.bundle.info["mode"]
     del state, tr
     free_device_memory()
+    step_ms = _step_ms(stamps["t"])
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+            "batch": 1, "seq": s, "param_count": params, "init_s": init_s,
+            "fit_s": fit_s, "losses": losses, "step_ms": step_ms,
+            "tokens_per_s": s / step_ms * 1e3, "peak_gb": peak_gb,
+            "flash_attention_launches_per_step": per_step, **split,
+            "launches": counts}, mode
 
-    mode = _attn_mode(cfg, ParallelConfig(), s)
+
+def phase_train_qwen3(specs, records, gen):
+    """qwen3-8b at its published widths in bf16, TRAIN_QWEN3_LAYERS of its
+    layers (train_published).  Then the attention Function's gradients held
+    bit-equal to autograd through the plain path the train step
+    differentiates at that length."""
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    from repro_torch.models.attention import attend_plain
+    res, mode = train_published(specs, records, SERVE_ARCH,
+                                TRAIN_QWEN3_LAYERS)
+    cfg, s = get_config(SERVE_ARCH), TRAIN_SEQ
     plain = functools.partial(attend_plain, mode=mode)
     q, k, v = (torch.randn((1, s, h, cfg.head_dim), generator=gen,
                            device="cuda").to(torch.bfloat16).requires_grad_()
@@ -1555,19 +1823,23 @@ def phase_train_qwen3(specs, records, gen):
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("the attention Function's gradients differ from"
                              " autograd of the plain path")
-    step_ms = _step_ms(stamps["t"])
-    return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers,
-            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
-            "batch": 1, "seq": s, "param_count": params, "init_s": init_s,
-            "fit_s": fit_s, "losses": losses, "step_ms": step_ms,
-            "tokens_per_s": s / step_ms * 1e3, "peak_gb": peak_gb,
-            "flash_attention_launches_per_step": per_step, **split,
+    return {**res,
             "grad_check": {"shape": [1, s, cfg.n_heads, cfg.n_kv_heads,
                                      cfg.head_dim], "dtype": "bfloat16",
-                           "backward_path": mode.kind, "bit_equal": True},
-            "launches": counts}
+                           "backward_path": mode.kind, "bit_equal": True}}
+
+
+def phase_train_moe(specs, records):
+    """qwen2-moe-a2.7b at its published widths in bf16, TRAIN_MOE_LAYERS of
+    its 24 layers (train_published): every layer MoE, 60 experts top-4
+    and 4 shared experts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    res, _ = train_published(specs, records, MOE_ARCH, TRAIN_MOE_LAYERS)
+    return {**res, "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+            "n_shared_experts": cfg.n_shared_experts,
+            "capacity": moe.capacity(TRAIN_SEQ, cfg)}
 
 
 def phase_train_cpu_gpu(specs, records):
@@ -1732,9 +2004,25 @@ def main() -> int:
         res = phase_serve_f32(SSM_ARCH)
     emit("serve_ssm_f32", launches=mp.counts(), **res)
 
+    res, counts = run_serve(MOE_ARCH, specs, records, radix + attention,
+                            extra=moe_drop_shares)
+    want = res["n_layers"] * res["prefills"]
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"serve_moe: flash_attention launched "
+                             f"{counts['flash_attention']} times for "
+                             f"{res['prefills']} prefills of "
+                             f"{res['n_layers']} layers ({want})")
+    emit("serve_moe", flash_attention_launches_per_prefill=res["n_layers"],
+         **res)
+    with MainPath(specs, records, attention) as mp:
+        res = phase_serve_moe_f32(gen)
+    emit("serve_moe_f32", launches=mp.counts(), **res)
+    emit("serve_llama4", **phase_serve_llama4(specs, records))
+
     free_device_memory()
     emit("train_etl", **phase_train_etl(specs, records, gen))
     emit("train_qwen3", **phase_train_qwen3(specs, records, gen))
+    emit("train_moe", **phase_train_moe(specs, records))
     emit("train_cpu_gpu", **phase_train_cpu_gpu(specs, records))
     emit("train_task", **phase_train_task(specs, records))
 

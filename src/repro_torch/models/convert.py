@@ -1,15 +1,21 @@
 """Weights carried across between the JAX package's layout and the port's.
 
-The JAX transformer stores its layers stacked for ``lax.scan``: attention
-leaves under ``blocks["attn"]`` with leading ``(n_super, period)`` axes,
-MLP leaves under ``blocks["mlp"]`` with a leading ``(n_super,)`` axis
-(``src/repro/models/transformer.py::init``).  The JAX SSM LM stacks its
-Mamba1 layers under ``layers`` on a leading ``(n_layers,)`` axis
-(``src/repro/models/ssm_lm.py::init``).  The port keeps every layer's
-tensors apart, under ``nn.Module`` names (``layers.3.attn.wq``), so
-conversion unstacks those axes (``params_from_jax``) or stacks them back
-(``jax_tree``, ``params_to_jax``).  Checkpoints are written in the JAX
-layout, so that either package restores the other's.
+The JAX transformer stores its layers stacked for ``lax.scan`` in
+superblocks of ``moe_layer_period`` layers
+(``src/repro/models/transformer.py::init``): attention leaves under
+``blocks["attn"]`` with leading ``(n_super, period)`` axes; the dense
+family's MLP under ``blocks["mlp"]`` with ``(n_super,)``; the MoE family's
+expert layer (the last of each superblock) under ``blocks["moe"]`` with
+``(n_super,)`` (its ``shared`` MLP a nested dict) and its other layers'
+MLPs under ``blocks["mlp_dense"]`` with ``(n_super, period - 1)``.  Layer
+i is superblock ``i // period``, slot ``i % period``.  The JAX SSM LM
+stacks its Mamba1 layers under ``layers`` on a leading ``(n_layers,)``
+axis (``src/repro/models/ssm_lm.py::init``).  The port keeps every
+layer's tensors apart, under ``nn.Module`` names (``layers.3.attn.wq``,
+``layers.3.moe.shared.wg``), so conversion unstacks those axes
+(``params_from_jax``) or stacks them back (``jax_tree``,
+``params_to_jax``).  Checkpoints are written in the JAX layout, so that
+either package restores the other's.
 
 A bfloat16 leaf crosses as numpy's 2-byte void words, the bytes of an
 ``ml_dtypes`` bfloat16 array (``train.checkpoint.host_array``).
@@ -21,11 +27,16 @@ import torch
 
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.ssm_lm import MambaLM
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import (Transformer, ffn_group,
+                                            superblock_slot)
 from repro_torch.train.checkpoint import host_array, tensor_from_host
 
-# Mamba1 leaves that stay f32 in a bf16 model (``ssm.mamba1_init``)
-F32_LEAVES = ("A_log", "D")
+# leaves that stay f32 in a bf16 model, by family: Mamba1's
+# (``ssm.mamba1_init``) and an MoE layer's router and shared gate
+# (``moe.moe_init``)
+F32_LEAVES = {"ssm": ("A_log", "D"), "moe": ("router", "shared_gate")}
+# the stacks of each transformer family, under ``blocks``
+GROUPS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe", "mlp_dense")}
 
 
 def _set(tree: dict, path, value):
@@ -34,10 +45,46 @@ def _set(tree: dict, path, value):
     tree[path[-1]] = value
 
 
+def _leaves(tree: dict, prefix=()):
+    """(key path, leaf) of a nested dict, depth first."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 def _layer_path(cfg, rest: tuple) -> tuple:
     """The JAX key path of a per-layer leaf whose port name ends in
-    ``rest`` (``("attn", "wq")``; an SSM layer's ``("A_log",)``)."""
+    ``rest`` (``("attn", "wq")``, ``("moe", "shared", "wg")``; an SSM
+    layer's ``("A_log",)``)."""
     return ("layers",) + rest if cfg.family == "ssm" else ("blocks",) + rest
+
+
+def _group_layers(cfg, group: str) -> list:
+    """The layers whose tensors the stack ``group`` holds, in stack order
+    (``group``: a transformer stack; for the SSM family, any leaf)."""
+    if cfg.family == "ssm" or group == "attn":
+        return list(range(cfg.n_layers))
+    return [i for i in range(cfg.n_layers) if ffn_group(cfg, i) == group]
+
+
+def _stack_shape(cfg, group: str) -> tuple:
+    """The leading axes of the stack ``group`` in the JAX layout."""
+    if cfg.family == "ssm":
+        return (cfg.n_layers,)
+    period = cfg.moe_layer_period
+    n_super = cfg.n_layers // period
+    return {"attn": (n_super, period), "mlp_dense": (n_super, period - 1)
+            }.get(group, (n_super,))
+
+
+def _jax_index(cfg, group: str, i: int) -> tuple:
+    """Layer i's index into the leading axes of the stack ``group``."""
+    if cfg.family == "ssm":
+        return (i,)
+    sb, j = superblock_slot(cfg, i)
+    return (sb, j) if group in ("attn", "mlp_dense") else (sb,)
 
 
 def jax_ndim(name: str, p: torch.Tensor, cfg) -> int:
@@ -46,8 +93,7 @@ def jax_ndim(name: str, p: torch.Tensor, cfg) -> int:
     parts = name.split(".")
     if parts[0] != "layers":
         return p.dim()
-    stacked = 2 if cfg.family != "ssm" and parts[2] == "attn" else 1
-    return p.dim() + stacked
+    return p.dim() + len(_stack_shape(cfg, parts[2]))
 
 
 def decayed_names(named: dict, cfg) -> set:
@@ -69,12 +115,13 @@ def jax_tree(named: dict, cfg) -> dict:
         else:
             _set(out, parts, t)
     for rest, by_layer in per_layer.items():
-        if sorted(by_layer) != list(range(cfg.n_layers)):
+        want = _group_layers(cfg, rest[0])
+        if sorted(by_layer) != want:
             raise ValueError(f"{'.'.join(rest)}: layers {sorted(by_layer)} "
-                             f"for {cfg.n_layers}")
-        stacked = torch.stack([by_layer[i] for i in range(cfg.n_layers)])
-        if cfg.family != "ssm" and rest[0] == "attn":
-            stacked = stacked[:, None]          # the superblock period, 1
+                             f"for {want}")
+        stacked = torch.stack([by_layer[i] for i in want])
+        stacked = stacked.reshape(_stack_shape(cfg, rest[0])
+                                  + stacked.shape[1:])
         _set(out, _layer_path(cfg, rest), stacked)
     return out
 
@@ -85,47 +132,51 @@ def named_from_jax(tree: dict, cfg) -> dict:
     named = {f"embed.{k}": a for k, a in tree["embed"].items()}
     named["final_norm"] = tree["final_norm"]
     if cfg.family == "ssm":
-        stack = tree["layers"]
-        n = {np.shape(a)[0] for a in stack.values()}
-        if n != {cfg.n_layers}:
-            raise ValueError(f"Mamba1 stack of {sorted(n)} layers for "
-                             f"{cfg.n_layers}")
-        for k, a in stack.items():
-            for i in range(cfg.n_layers):
-                named[f"layers.{i}.{k}"] = a[i]
-        return named
-    blocks = tree["blocks"]
-    if set(blocks) != {"attn", "mlp"}:
-        raise NotImplementedError(
-            f"blocks {sorted(blocks)}: only the dense family's attn + mlp "
-            f"stacks convert")
-    n_super, period = np.shape(blocks["attn"]["wq"])[:2]
-    if period != 1 or n_super != cfg.n_layers:
-        raise ValueError(f"attention stack of shape ({n_super}, {period}) "
-                         f"for {cfg.n_layers} dense layers")
-    for grp in ("attn", "mlp"):
-        for k, a in blocks[grp].items():
-            for i in range(n_super):
-                named[f"layers.{i}.{grp}.{k}"] = a[i, 0] if grp == "attn" \
-                    else a[i]
+        stacks = [((), tree["layers"])]         # the leaf names follow
+    else:
+        blocks = tree["blocks"]
+        want = {g for g in GROUPS.get(cfg.family, ()) if _group_layers(cfg, g)}
+        if set(blocks) != want:
+            raise NotImplementedError(
+                f"blocks {sorted(blocks)}: a {cfg.family!r} stack of "
+                f"{cfg.n_layers} layers in superblocks of "
+                f"{cfg.moe_layer_period} converts from {sorted(want)}")
+        stacks = [((g,), stack) for g, stack in blocks.items()]
+    for prefix, stack in stacks:
+        for path, a in _leaves(stack, prefix):
+            lead = _stack_shape(cfg, path[0])
+            if tuple(np.shape(a)[:len(lead)]) != lead:
+                raise ValueError(f"{'/'.join(path)}: leading axes "
+                                 f"{tuple(np.shape(a)[:len(lead)])}, not "
+                                 f"{lead}")
+            for i in _group_layers(cfg, path[0]):
+                named[".".join(("layers", str(i)) + path)] = \
+                    a[_jax_index(cfg, path[0], i)]
     return named
+
+
+def _unflatten(flat: dict) -> dict:
+    """``{"shared.wg": t}`` -> ``{"shared": {"wg": t}}``."""
+    out = {}
+    for k, v in flat.items():
+        _set(out, k.split("."), v)
+    return out
 
 
 def params_from_jax(tree: dict, cfg, device=None, dtype=None):
     """``tree``: the JAX ``init`` params as nested dicts of numpy arrays (or
     tensors) under the JAX key paths.  Returns the port's model on
-    ``device``, in ``dtype`` (default: the arrays' own dtype; ``A_log`` and
-    ``D`` of a Mamba1 layer stay f32), its parameters carrying no
-    gradient."""
+    ``device``, in ``dtype`` (default: the arrays' own dtype; the leaves of
+    ``F32_LEAVES`` stay f32), its parameters carrying no gradient."""
     dt = None if dtype is None else torch_dtype(dtype)
+    keep = F32_LEAVES.get(cfg.family, ())
 
     def t(name, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             x = a.detach().to(device, copy=True)
         else:
             x = tensor_from_host(a, device=device)     # a writable copy
-        keep_f32 = cfg.family == "ssm" and name.rsplit(".", 1)[-1] in \
-            F32_LEAVES
+        keep_f32 = name.rsplit(".", 1)[-1] in keep
         return x if dt is None or keep_f32 else x.to(dt)
 
     named = {k: t(k, a) for k, a in named_from_jax(tree, cfg).items()}
@@ -133,14 +184,15 @@ def params_from_jax(tree: dict, cfg, device=None, dtype=None):
              if k.startswith("embed.")}
 
     def layer(prefix):
-        return {k[len(prefix):]: v for k, v in named.items()
-                if k.startswith(prefix)}
+        return _unflatten({k[len(prefix):]: v for k, v in named.items()
+                           if k.startswith(prefix)})
 
     if cfg.family == "ssm":
         return MambaLM(cfg, embed, named["final_norm"],
                        [layer(f"layers.{i}.") for i in range(cfg.n_layers)])
     return Transformer(cfg, embed, named["final_norm"],
-                       [(layer(f"layers.{i}.attn."), layer(f"layers.{i}.mlp."))
+                       [(layer(f"layers.{i}.attn."),
+                         layer(f"layers.{i}.{ffn_group(cfg, i)}."))
                         for i in range(cfg.n_layers)])
 
 

@@ -22,10 +22,13 @@ def torch_dtype(name) -> torch.dtype:
 
 def frozen(groups: dict) -> nn.ParameterDict:
     """A parameter group under its JAX names, carrying no gradient: what
-    serving holds.  Training turns gradients on for the whole model
-    (``init(..., trainable=True)`` or ``model.requires_grad_()``)."""
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in groups.items()})
+    serving holds.  A nested group (an MoE layer's ``shared`` MLP) becomes
+    a nested ``ParameterDict``.  Training turns gradients on for the whole
+    model (``init(..., trainable=True)`` or ``model.requires_grad_()``)."""
+    return nn.ParameterDict({
+        k: frozen(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False)
+        for k, v in groups.items()})
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float,

@@ -1,0 +1,152 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch, the JAX package's
+``src/repro/models/moe.py`` on one device.
+
+Dense routing (f32 logits, softmax, top-k, gates renormalised) → a stable
+sort gives each (token, expert) pair its position in the expert's group →
+one scatter of the tokens into a flat ``(E·C + 1, d)`` buffer, whose last
+row takes every pair at a position ``>= C`` (dropped) → three batched
+expert products (``torch.bmm``: ``ecd,edf->ecf`` twice, ``ecf,efd->ecd``)
+→ one gather of each pair's expert output from the same flat index (the
+dropped pairs read a zero row) → a sum over each token's k pairs, weighted
+by its gates.  No loop over experts, and no atomics: ``token_of_pair`` is
+``repeat(arange(T), k)``, so each token's pairs are contiguous and the
+combine is a ``(T, k, d)`` sum.
+
+Reference behaviours kept exactly:
+
+* top-k ties go to the lower expert index, as ``jax.lax.top_k`` breaks
+  them (``torch.topk`` does not): the experts are chosen by a stable
+  descending sort;
+* the capacity C is computed from the number of tokens in the call, so a
+  batched prefill can drop pairs that a single-request prefill keeps;
+* a dropped pair contributes 0; the shared experts' sigmoid gate is
+  computed in f32 and cast.
+
+``moe_ffn_shardmap`` (local-expert EP under ``shard_map``) waits for the
+distributed layer (ROADMAP modules item 11).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+
+
+def expert_init(gen: torch.Generator, n: int, shape, dtype) -> torch.Tensor:
+    """An ``(n,) + shape`` stack drawn as ``dense_init`` draws it (normal
+    times 1/sqrt(fan_in), fan_in every dim but the last of the stacked
+    leaf), one expert's slice at a time: the f32 temporary is one
+    expert's, not the whole stack's."""
+    out = torch.empty((n, *shape), dtype=dtype, device=gen.device)
+    std = 1.0 / math.sqrt(n * math.prod(shape[:-1]))
+    for e in range(n):
+        out[e] = (torch.randn(shape, generator=gen, dtype=torch.float32,
+                              device=gen.device) * std).to(dtype)
+    return out
+
+
+def moe_init(gen: torch.Generator, cfg, dtype) -> dict:
+    """``router`` (d, E) and ``shared_gate`` (d, 1) stay float32 in a bf16
+    model; ``wg``/``wi`` (E, d, f), ``wo`` (E, f, d); ``shared`` is a
+    SwiGLU MLP of width ``n_shared_experts * d_ff``."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": dense_init(gen, (d, E), torch.float32),
+         "wg": expert_init(gen, E, (d, f), dtype),
+         "wi": expert_init(gen, E, (d, f), dtype),
+         "wo": expert_init(gen, E, (f, d), dtype)}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, d, cfg.n_shared_experts * f, dtype)
+        p["shared_gate"] = dense_init(gen, (d, 1), torch.float32)
+    return p
+
+
+def capacity(n_tokens: int, cfg) -> int:
+    c = int(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def route(p, x, cfg):
+    """x (T, d) -> (expert_idx (T, k) int64, gates (T, k) f32).  Ties
+    between gates go to the lower expert index."""
+    logits = x.float() @ p["router"]
+    gates_all = torch.softmax(logits, dim=-1)
+    idx = torch.sort(gates_all, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.top_k]
+    gates = gates_all.gather(-1, idx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return idx, gates
+
+
+def dispatch_indices(expert_idx, n_experts: int, cap: int):
+    """Flattened (T*k,) expert assignment -> (expert, position) pairs.
+    Positions >= cap are overflow (dropped by the scatter, 0 in the
+    combine).  Stable within expert (sorted order)."""
+    flat_e = expert_idx.reshape(-1)                       # (T*k,)
+    sorted_e, order = torch.sort(flat_e, stable=True)     # grouped by e
+    start = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, dtype=sorted_e.dtype,
+                               device=sorted_e.device), side="left")
+    pos_sorted = torch.arange(flat_e.shape[0], device=flat_e.device) \
+        - start[sorted_e]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    return flat_e, pos
+
+
+def _shared(p, xt, out, cfg):
+    if not cfg.n_shared_experts:
+        return out
+    sg = torch.sigmoid(xt.float() @ p["shared_gate"])
+    return out + mlp_apply(p["shared"], xt) * sg.to(out.dtype)
+
+
+def moe_ffn(p, x, cfg):
+    """x (..., d) -> (..., d).  Flattens all leading dims into tokens."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    T = xt.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(T, cfg)
+
+    idx, gates = route(p, xt, cfg)                        # (T, k)
+    e_of_pair, pos_of_pair = dispatch_indices(idx, E, C)  # (T*k,)
+    # each pair's row of the flat (E·C + 1, d) buffer; E·C takes the drops
+    slot = torch.where(pos_of_pair < C, e_of_pair * C + pos_of_pair, E * C)
+
+    # scatter: pair i carries token i // k (its k copies side by side)
+    pairs_x = xt[:, None].expand(T, k, d).reshape(T * k, d)
+    ebuf = xt.new_zeros((E * C + 1, d)).index_copy(0, slot, pairs_x)
+    ebuf = ebuf[:E * C].view(E, C, d)
+
+    g = F.silu(torch.bmm(ebuf, p["wg"]))
+    u = torch.bmm(ebuf, p["wi"])
+    eout = torch.bmm(g * u, p["wo"]).reshape(E * C, d)
+
+    # combine: gather each pair's expert output (dropped -> the zero row),
+    # weight by its gate, sum each token's k pairs
+    pair_out = torch.cat([eout, eout.new_zeros((1, d))]).index_select(0, slot)
+    out = (pair_out.view(T, k, d)
+           * gates[..., None].to(pair_out.dtype)).sum(dim=1)
+    return _shared(p, xt, out, cfg).reshape(*lead, d)
+
+
+def moe_ffn_dense_oracle(p, x, cfg, keep=None):
+    """O(T·E·d·f) oracle: run every expert on every token, combine by gates
+    (no capacity drops).  ``keep`` (T, k) bool, if given, drops the pairs
+    it marks False (the pairs ``moe_ffn`` drops at the call's capacity),
+    which the JAX oracle cannot express."""
+    lead = x.shape[:-1]
+    xt = x.reshape(-1, x.shape[-1])
+    idx, gates = route(p, xt, cfg)
+    g = F.silu(torch.einsum("td,edf->tef", xt, p["wg"]))
+    u = torch.einsum("td,edf->tef", xt, p["wi"])
+    alle = torch.einsum("tef,efd->ted", g * u, p["wo"])       # (T, E, d)
+    sel = torch.gather(alle, 1, idx[..., None].expand(-1, -1,
+                                                       alle.shape[-1]))
+    w = gates[..., None].to(sel.dtype)
+    if keep is not None:
+        w = w * keep[..., None].to(sel.dtype)
+    out = (sel * w).sum(dim=1)
+    return _shared(p, xt, out, cfg).reshape(*lead, -1)

@@ -3,9 +3,9 @@
 Every family exposes ``init(gen, cfg[, trainable])`` / ``forward`` /
 ``loss_fn`` / ``prefill`` / ``decode_step`` / ``cache_init`` with dict
 batches, as in the JAX package, so the trainer and the serving engines
-treat every arch alike.  The port has the dense family and the SSM family
-(Mamba1); the others raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+treat every arch alike.  The port has the dense and MoE families (the
+transformer) and the SSM family (Mamba1); the others raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -26,12 +26,11 @@ class ModelApi(NamedTuple):
     cache_init: Callable
 
 
-_FAMILIES = {"dense": transformer, "ssm": ssm_lm}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm}
 
 # where each family not ported yet stands in ROADMAP.md ("Modules still to
 # port")
 _NOT_PORTED = {
-    "moe": "item 8 (MoE: models/moe.py)",
     "hybrid": "item 8 (hybrid: models/hybrid.py)",
     "vlm": "item 8 (VLM: models/vlm.py)",
     "audio": "item 8 (audio: models/encdec.py)",

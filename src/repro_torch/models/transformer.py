@@ -1,21 +1,28 @@
-"""Decoder-only transformer LM, the dense family.
+"""Decoder-only transformer LM, the dense and MoE families.
 
 The model is an ``nn.Module`` whose parameter groups are
 ``nn.ParameterDict``s under the JAX package's names and layouts (``wq``
 (d, H, hd), ``wo`` (H, hd, d), ``wg``/``wi`` (d, f), ``embedding`` (V, d),
-``lm_head`` (d, V)), so the functions below read like their JAX twins.
-Layers are an ``nn.ModuleList`` walked in a Python loop, not a stacked
-scan.  Parameters carry no gradient unless the model is built trainable
-(``init(..., trainable=True)`` or ``model.requires_grad_()``); serving
-keeps them frozen.  ``cfg.remat`` wraps each layer of a forward that
-records gradients in ``torch.utils.checkpoint``, the JAX package's
-``jax.checkpoint`` of its scan body: it changes memory, not numbers.
+``lm_head`` (d, V); an MoE layer's ``router`` (d, E), ``wg``/``wi``
+(E, d, f), ``wo`` (E, f, d), ``shared`` and ``shared_gate``), so the
+functions below read like their JAX twins.  Layers are an
+``nn.ModuleList`` walked in a Python loop, not a stacked scan.  Layer i
+holds ``attn`` and one FFN group under the JAX name of its stack
+(:func:`ffn_group`): ``mlp`` in the dense family; ``moe`` on an MoE layer
+(``cfg.is_moe_layer(i)``: the last of each superblock of
+``moe_layer_period`` layers) and ``mlp_dense`` (width ``d_ff_dense or
+d_ff``) on the others.  Parameters carry no gradient unless the model is
+built trainable (``init(..., trainable=True)`` or
+``model.requires_grad_()``); serving keeps them frozen.  ``cfg.remat``
+wraps each layer of a forward that records gradients in
+``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of its
+scan body: it changes memory, not numbers.
 
-The KV cache keeps the JAX layout, ``(n_layers, 1, B, smax, K, hd)`` for
-``k`` and ``v`` (the 1 is the JAX superblock period of a dense stack), so
-the serving engines locate its batch axis exactly as the JAX engines do.
-``decode_step`` writes the new token's keys and values into that cache in
-place and returns it.
+The KV cache keeps the JAX layout, ``(n_super, period, B, smax, K, hd)``
+for ``k`` and ``v``, layer i at superblock ``i // period``, slot
+``i % period`` (a dense stack is period 1), so the serving engines locate
+its batch axis exactly as the JAX engines do.  ``decode_step`` writes the
+new token's keys and values into that cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
                                        embed_init, frozen, logits_apply,
@@ -31,14 +39,38 @@ from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
                                        torch_dtype)
 
 
-class Layer(nn.Module):
-    """One block: ``attn`` holds its pre-norm ``ln`` and the projections,
-    ``mlp`` its pre-norm ``ln`` and the SwiGLU weights."""
+def ffn_group(cfg, i: int) -> str:
+    """The JAX name of the stack that holds layer i's FFN."""
+    if cfg.is_moe_layer(i):
+        return "moe"
+    return "mlp_dense" if cfg.n_experts else "mlp"
 
-    def __init__(self, attn_p: dict, mlp_p: dict):
+
+def superblock_slot(cfg, i: int) -> tuple[int, int]:
+    """Layer i's (superblock, slot) in the JAX stacks and the KV cache."""
+    return divmod(i, cfg.moe_layer_period)
+
+
+class Layer(nn.Module):
+    """One block: ``attn`` holds its pre-norm ``ln`` and the projections;
+    the FFN group, under the name ``group``, its pre-norm ``ln`` and the
+    SwiGLU or MoE weights."""
+
+    def __init__(self, attn_p: dict, ffn_p: dict, group: str):
         super().__init__()
         self.attn = frozen(attn_p)
-        self.mlp = frozen(mlp_p)
+        self.group = group
+        setattr(self, group, frozen(ffn_p))
+
+    @property
+    def ffn(self) -> nn.ParameterDict:
+        return getattr(self, self.group)
+
+
+def _meta(groups) -> dict:
+    return {k: _meta(v) if isinstance(v, nn.ParameterDict)
+            else torch.empty_like(v, device="meta")
+            for k, v in groups.items()}
 
 
 class Transformer(nn.Module):
@@ -52,29 +84,29 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = frozen(embed)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.layers = nn.ModuleList(Layer(a, m) for a, m in layers)
+        self.layers = nn.ModuleList(Layer(a, f, ffn_group(cfg, i))
+                                    for i, (a, f) in enumerate(layers))
 
     def meta_twin(self) -> "Transformer":
         """The same structure on the ``meta`` device (shapes and dtypes
         only): what ``cache_batch_axes`` probes."""
-        def meta(groups):
-            return {k: torch.empty_like(v, device="meta")
-                    for k, v in groups.items()}
-        return Transformer(self.cfg, meta(self.embed),
+        return Transformer(self.cfg, _meta(self.embed),
                            torch.empty_like(self.final_norm, device="meta"),
-                           [(meta(layer.attn), meta(layer.mlp))
+                           [(_meta(layer.attn), _meta(layer.ffn))
                             for layer in self.layers])
 
 
 def _check_family(cfg):
-    if cfg.n_experts:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the MoE family is not ported yet (ROADMAP modules "
-            f"item 8, MoE)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's transformer runs the dense family; "
-            f"{cfg.family!r} is ROADMAP modules item 8")
+            f"{cfg.name}: the port's transformer runs the dense and MoE "
+            f"families; {cfg.family!r} is ROADMAP modules item 8")
+    if (cfg.family == "moe") != bool(cfg.n_experts):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
+                         f"{cfg.n_experts} experts")
+    if cfg.n_layers % cfg.moe_layer_period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
+                         f"superblocks of {cfg.moe_layer_period}")
 
 
 def param_count(model: nn.Module) -> int:
@@ -82,21 +114,29 @@ def param_count(model: nn.Module) -> int:
 
 
 def init(gen: torch.Generator, cfg, trainable: bool = False) -> Transformer:
-    """Random parameters on ``gen.device``, drawn one tensor at a time in
-    f32 and cast to ``cfg.dtype`` (no f32 copy of the whole model exists);
-    ``trainable`` turns their gradients on."""
+    """Random parameters on ``gen.device``, drawn one tensor (an expert
+    stack: one expert) at a time in f32 and cast to ``cfg.dtype`` (no f32
+    copy of the whole model exists; an MoE layer's ``router`` and
+    ``shared_gate`` stay f32); ``trainable`` turns their gradients on."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
 
     def ones():
         return torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)
 
+    def ffn(i):
+        group = ffn_group(cfg, i)
+        if group == "moe":
+            return {"ln": ones(), **moe_mod.moe_init(gen, cfg, dtype)}
+        width = (cfg.d_ff_dense or cfg.d_ff) if group == "mlp_dense" \
+            else cfg.d_ff
+        return {"ln": ones(), **mlp_init(gen, cfg.d_model, width, dtype)}
+
     layers = [({"ln": ones(),
                 **attn.attn_init(gen, cfg.d_model, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm,
-                                 dtype)},
-               {"ln": ones(), **mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)})
-              for _ in range(cfg.n_layers)]
+                                 dtype)}, ffn(i))
+              for i in range(cfg.n_layers)]
     embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                        cfg.tie_embeddings)
     return Transformer(cfg, embed, ones(), layers).requires_grad_(trainable)
@@ -113,8 +153,12 @@ def _attn_sub(p, x, positions, cfg, mode: AttnMode):
     return x + torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
 
 
-def _ffn_sub(p, x, cfg):
-    return x + mlp_apply(p, rms_norm(x, p["ln"], cfg.norm_eps))
+def _ffn_sub(layer, x, cfg):
+    p = layer.ffn
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if layer.group == "moe":
+        return x + moe_mod.moe_ffn(p, h, cfg)
+    return x + mlp_apply(p, h)
 
 
 def _embed_input(params, tokens):
@@ -126,7 +170,7 @@ def _embed_input(params, tokens):
 
 def _layer(layer, x, positions, cfg, mode):
     x, _ = _attn_sub(layer.attn, x, positions, cfg, mode)
-    return _ffn_sub(layer.mlp, x, cfg)
+    return _ffn_sub(layer, x, cfg)
 
 
 def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
@@ -156,7 +200,9 @@ def loss_fn(params, cfg, batch, mode: AttnMode = AttnMode()):
 # ----------------------------------------------------------------------------
 def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None):
     dtype = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.n_layers, 1, batch_size, smax, cfg.n_kv_heads, cfg.head_dim)
+    period = cfg.moe_layer_period
+    shape = (cfg.n_layers // period, period, batch_size, smax,
+             cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -168,9 +214,10 @@ def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
     s = x.shape[1]
     for i, layer in enumerate(params.layers):
         x, (k, v) = _attn_sub(layer.attn, x, positions, cfg, mode)
-        cache["k"][i, 0, :, :s] = k
-        cache["v"][i, 0, :, :s] = v
-        x = _ffn_sub(layer.mlp, x, cfg)
+        sb, j = superblock_slot(cfg, i)
+        cache["k"][sb, j, :, :s] = k
+        cache["v"][sb, j, :, :s] = v
+        x = _ffn_sub(layer, x, cfg)
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return cache, logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0]
 
@@ -186,10 +233,11 @@ def decode_step(params, cfg, batch, cache):
         h = rms_norm(x, ap["ln"], cfg.norm_eps)
         q, k, v = attn.qkv_project(ap, h, pos2d, cfg.rope_theta, cfg.qk_norm,
                                    cfg.norm_eps)
-        ck, cv = attn.cache_update(cache["k"][i, 0], cache["v"][i, 0], k, v,
-                                   positions)
+        sb, j = superblock_slot(cfg, i)
+        ck, cv = attn.cache_update(cache["k"][sb, j], cache["v"][sb, j], k,
+                                   v, positions)
         o = attn.attend_decode(q, ck, cv, positions + 1)
         x = x + torch.einsum("bshk,hkd->bsd", o, ap["wo"])
-        x = _ffn_sub(layer.mlp, x, cfg)
+        x = _ffn_sub(layer, x, cfg)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0], cache

@@ -232,6 +232,72 @@ def test_port_restores_the_jax_packages_bf16_checkpoint(tmp_path):
     assert wide.dtype == torch.float32 and torch.equal(wide, want.float())
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_checkpoint_crosses_packages(tmp_path, arch):
+    """An MoE trainer's checkpoint (``blocks/moe`` with its nested
+    ``shared``, and llama4's ``blocks/mlp_dense``) written by the JAX
+    trainer restores in the port's, and the port's in the JAX trainer's,
+    bit for bit (f32), parameters and moments alike."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import ParallelConfig as JParallel
+    from repro.configs import get_config as jget
+    from repro.configs import reduced as jreduced
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.launch.mesh import make_local_mesh
+    from repro.train import data as jdata
+    from repro.train.trainer import Trainer as JTrainer
+
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.convert import jax_tree, params_to_jax
+    from repro_torch.train import data as tdata
+    from repro_torch.train.trainer import Trainer
+
+    jcfg = jreduced(jget(arch))
+    tcfg = reduced(get_config(arch))
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jt = JTrainer(jcfg, make_local_mesh(1, 1), JParallel(),
+                  JShape("t", "train", 16, 2), ckpt_dir=str(jdir),
+                  ckpt_every=2)
+    js, _ = jt.fit(jdata.SyntheticCorpus(jcfg.vocab_size, 0).batches(2, 16,
+                                                                      2),
+                   2, log_every=0)
+    tt = Trainer(tcfg, ParallelConfig(), ShapeConfig("t", "train", 16, 2),
+                 ckpt_dir=str(jdir), device="cpu")
+    ts = tt.maybe_restore()
+    assert ts.step == 2 and int(ts.opt_state["count"]) == 2
+
+    def pairs(port, ref):
+        ref = jax.tree.map(np.asarray, ref)
+        pf = dict(jax.tree_util.tree_flatten_with_path(port)[0])
+        rf = dict(jax.tree_util.tree_flatten_with_path(ref)[0])
+        assert set(pf) == set(rf)
+        assert any("shared" in str(p) for p in rf)
+        return [(str(k), np.asarray(pf[k]), rf[k]) for k in rf]
+
+    nu = jax.tree.map(lambda t: t.numpy(), jax_tree(ts.opt_state["nu"],
+                                                    tcfg))
+    for path, p, r in pairs(params_to_jax(ts.params), js.params) + pairs(
+            nu, js.opt_state["nu"]):
+        np.testing.assert_array_equal(p, r, err_msg=path)
+
+    tt2 = Trainer(tcfg, ParallelConfig(), ShapeConfig("t", "train", 16, 2),
+                  ckpt_dir=str(tdir), ckpt_every=3, device="cpu")
+    ts2, _ = tt2.fit(tdata.SyntheticCorpus(tcfg.vocab_size, 0).batches(
+        2, 16, 1), 1, state=ts, log_every=0)
+    jt2 = JTrainer(jcfg, make_local_mesh(1, 1), JParallel(),
+                   JShape("t", "train", 16, 2), ckpt_dir=str(tdir))
+    js2 = jt2.maybe_restore()
+    assert js2.step == 3 and int(js2.opt_state["count"]) == 3
+    for path, p, r in pairs(params_to_jax(ts2.params), js2.params):
+        np.testing.assert_array_equal(p, r, err_msg=path)
+
+
 # ---------------------------------------------------------------------------
 # scheduler integration: thread executor (tier-1)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the dataframe path on logical ranks of ``cuda:0``, and the serving
-engines' tokens against the port's oracle (dense and SSM families).
+engines' tokens against the port's oracle (dense, MoE and SSM families).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -303,6 +303,85 @@ def test_serve_lm_on_the_card(cuda):
     serve_lm.main(["--device", str(cuda)])
     assert fa.flash_attention.launches > before[0]
     assert radix_partition.launches > before[1]
+
+
+MOE = ["qwen2-moe-a2.7b", "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_f32_token_check_at_reduced_widths(cuda, arch):
+    """The MoE family in the continuous engine (prefill through the kernel,
+    one launch a layer) against the full-forward oracle, token for token;
+    the reduced configs' capacity factor 4.0 drops no pair."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve_lm import make_requests
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=4)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    reqs = make_requests(cfg, [30, 7, 19], [6, 6, 6])
+    before = fa.flash_attention.launches
+    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=64).run(reqs)
+    assert fa.flash_attention.launches - before == cfg.n_layers * len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.05])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, cf):
+    """moe_ffn on the card and on the CPU from the same f32 weights and
+    tokens: the same pairs dropped, outputs within 1e-5 (TF32 off)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(reduced(get_config(MOE[0])), n_experts=16,
+                              top_k=4, capacity_factor=cf)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn(300, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in p.items()}
+    cap = moe.capacity(300, cfg)
+    pos = {}
+    for dev, pp in (("cpu", p), ("cuda", on_card)):
+        idx, _ = moe.route(pp, x.to(dev), cfg)
+        pos[dev] = moe.dispatch_indices(idx, cfg.n_experts, cap)[1].cpu()
+    assert torch.equal(pos["cuda"], pos["cpu"])
+    assert bool((pos["cpu"] >= cap).any()) == (cf < 1)
+    torch.testing.assert_close(moe.moe_ffn(on_card, x.to(cuda), cfg).cpu(),
+                               moe.moe_ffn(p, x, cfg), rtol=1e-5, atol=1e-5)
+
+
+def test_moe_trainer_on_the_card(cuda):
+    """The reduced qwen2-moe trains on the card through the kernel (once a
+    layer a step; remat off): the loss falls and stays finite."""
+    from repro_torch.configs import ParallelConfig, ShapeConfig
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train.data import SyntheticCorpus
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+    cfg = reduced(get_config(MOE[0]))
+    shape = ShapeConfig("t", "train", 64, 4)
+    tr = Trainer(cfg, ParallelConfig(), shape,
+                 OptimizerConfig(peak_lr=3e-3, warmup_steps=2,
+                                 total_steps=8), device=cuda)
+    before = fa.flash_attention.launches
+    _, losses = tr.fit(SyntheticCorpus(cfg.vocab_size).batches(4, 64, 8), 8,
+                       log_every=0)
+    assert fa.flash_attention.launches == before + 8 * cfg.n_layers
+    assert losses[-1] < losses[0] and all(np.isfinite(losses))
+
+
+def test_serve_lm_serves_qwen2_moe_on_the_card(cuda):
+    from repro_torch import serve_lm
+    before = fa.flash_attention.launches
+    serve_lm.main(["--device", str(cuda), "--arch", MOE[0]])
+    assert fa.flash_attention.launches > before
 
 
 # the sweep of tests/test_kernels.py plus ragged S and D; then N that is no

@@ -35,6 +35,7 @@ from repro_torch.serve.continuous import cache_batch_axes
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = [a for a in list_archs() if get_config(a).family == "dense"]
+MOE = [a for a in list_archs() if get_config(a).family == "moe"]
 
 
 def _np(x, dtype=np.float32):
@@ -56,14 +57,18 @@ def _randn(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-def _configs(arch, n_layers=2):
+def _configs(arch, n_layers=None):
+    """Reduced configs of ``n_layers`` (default 2; an MoE arch keeps its
+    reduced 4: two superblocks of llama4's period 2)."""
+    if n_layers is None:
+        n_layers = 4 if get_config(arch).family == "moe" else 2
     jcfg = dataclasses.replace(reduced(get_config(arch)), n_layers=n_layers)
     tcfg = dataclasses.replace(t_reduced(t_get_config(arch)),
                                n_layers=n_layers)
     return jcfg, tcfg
 
 
-def _models(arch, seed=0, n_layers=2):
+def _models(arch, seed=0, n_layers=None):
     jcfg, tcfg = _configs(arch, n_layers)
     params = jax_get_model(jcfg).init(jax.random.key(seed), jcfg)
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
@@ -257,7 +262,7 @@ def _batch(cfg, b, s, seed):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", *MOE])
 def test_forward_and_loss_match_jax(arch):
     jcfg, tcfg, params, model = _models(arch)
     japi, api = jax_get_model(jcfg), get_model(tcfg)
@@ -273,7 +278,7 @@ def test_forward_and_loss_match_jax(arch):
         "tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", *MOE])
 def test_prefill_and_decode_match_jax(arch):
     jcfg, tcfg, params, model = _models(arch)
     japi, api = jax_get_model(jcfg), get_model(tcfg)
@@ -301,7 +306,7 @@ def test_prefill_and_decode_match_jax(arch):
         _close(tc["v"], jc["v"])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", *MOE])
 def test_cache_batch_axes_match_jax(arch):
     jcfg, tcfg, params, model = _models(arch)
     axes, spec = cache_batch_axes(tcfg, model, 24)
@@ -330,13 +335,90 @@ def test_init_draws_the_jax_shapes_from_a_generator():
 
 
 @pytest.mark.parametrize("arch", [a for a in list_archs() if get_config(a)
-                                  .family not in ("dense", "ssm")])
+                                  .family not in ("dense", "ssm", "moe")])
 def test_registry_raises_for_families_not_ported(arch):
     cfg = t_reduced(t_get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
         get_model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init(torch.Generator(), cfg)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: qwen2-moe-a2.7b (every layer MoE) and llama4-maverick
+# (period 2: a dense layer, then an MoE layer) at the reduced widths
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", MOE)
+def test_get_model_takes_the_moe_family_at_published_widths(arch):
+    cfg = t_get_config(arch)
+    api = get_model(cfg)
+    assert api.init is TT.init and api.prefill is TT.prefill
+    assert api.decode_step is TT.decode_step
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", *MOE])
+def test_cache_init_matches_jax(arch):
+    jcfg, tcfg = _configs(arch)
+    jc = jax_get_model(jcfg).cache_init(jcfg, 3, 24)
+    tc = get_model(tcfg).cache_init(tcfg, 3, 24)
+    for name in ("k", "v"):
+        assert tuple(tc[name].shape) == jc[name].shape
+        assert str(tc[name].dtype).removeprefix("torch.") == \
+            str(jc[name].dtype)
+        assert not tc[name].any()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_matches_the_jax_shapes_and_dtypes(arch):
+    """A bf16 model drawn from a generator: every leaf in the JAX layout has
+    the shape and dtype of the JAX init's (``eval_shape``), the router and
+    the shared gate f32; the parameter count is the config's."""
+    jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16")
+                  for c in _configs(arch))
+    want = jax.eval_shape(lambda: jax_get_model(jcfg).init(
+        jax.random.key(0), jcfg))
+    model = get_model(tcfg).init(torch.Generator().manual_seed(3), tcfg)
+    from repro_torch.models.convert import jax_tree
+    got = jax_tree(dict(model.named_parameters()), tcfg)
+    want_flat = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    got_flat = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    assert set(got_flat) == set(want_flat)
+    for path, leaf in want_flat.items():
+        t = got_flat[path]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).removeprefix("torch.") == str(leaf.dtype), path
+    for layer in model.layers:
+        if layer.group == "moe":
+            assert layer.moe["router"].dtype == torch.float32
+            assert layer.moe["shared_gate"].dtype == torch.float32
+            assert layer.moe["wg"].dtype == torch.bfloat16
+    assert TT.param_count(model) == tcfg.param_count()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_params_round_trip_and_decay_rule(arch):
+    """``params_to_jax(params_from_jax(tree))`` is ``tree`` bit for bit, and
+    the names ``decayed_names`` picks are the JAX leaves of ``ndim >= 2``:
+    every per-layer tensor (an MoE layer's ``ln`` is (n_super, d))."""
+    from repro_torch.models.convert import (decayed_names, jax_tree,
+                                            params_to_jax)
+    jcfg, tcfg, params, model = _models(arch)
+    host = jax.tree.map(np.asarray, params)
+    back = params_to_jax(model)
+    want_flat = dict(jax.tree_util.tree_flatten_with_path(host)[0])
+    got_flat = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert set(got_flat) == set(want_flat)
+    for path, leaf in want_flat.items():
+        np.testing.assert_array_equal(got_flat[path], leaf, err_msg=str(path))
+    named = dict(model.named_parameters())
+    dec = decayed_names(named, tcfg)
+    flags = jax_tree({k: torch.full_like(p, float(k in dec))
+                      for k, p in named.items()}, tcfg)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(flags)[0]:
+        assert bool((leaf == 1).all()) == (want_flat[path].ndim >= 2), path
+    assert "final_norm" not in dec
+    assert any(k.endswith("moe.ln") for k in dec)
+    assert any(k.endswith("moe.shared.wg") for k in dec)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ for token, the port's ``greedy_reference`` AND the JAX package's: the
 static engine over length groups, the continuous engine under staggered
 admission, mixed budgets and eviction, and ``ServeDriver`` running prefill
 and decode as scheduler tasks beside ETL tasks.  The dense family and the
-SSM family (falcon-mamba-7b) both run the engines.
+SSM family (falcon-mamba-7b) and the MoE family (qwen2-moe-a2.7b, and
+llama4-maverick in two superblocks of a dense and an MoE layer) all run
+the engines.
 """
 import dataclasses
 
@@ -29,6 +31,7 @@ from repro_torch.serve import (AutoscaleConfig, ContinuousEngine, Request,
                                greedy_reference)
 
 DENSE = [a for a in list_archs() if get_config(a).family == "dense"]
+MOE = [a for a in list_archs() if get_config(a).family == "moe"]
 SSM = "falcon-mamba-7b"
 
 
@@ -59,8 +62,9 @@ def _jax_oracle_forward_jitted():
 
 
 def _make(arch, seed=0):
-    jcfg = dataclasses.replace(reduced(get_config(arch)), n_layers=2)
-    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), n_layers=2)
+    n = 4 if arch in MOE else 2         # llama4: 2 superblocks of period 2
+    jcfg = dataclasses.replace(reduced(get_config(arch)), n_layers=n)
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), n_layers=n)
     params = jax_get_model(jcfg).init(jax.random.key(seed), jcfg)
     model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
     return (jcfg, params), (tcfg, model)
@@ -83,7 +87,7 @@ def _check_oracles(jax_side, port_side, reqs, out):
         np.testing.assert_array_equal(out[r.uid], ref)
 
 
-@pytest.mark.parametrize("arch", DENSE + [SSM])
+@pytest.mark.parametrize("arch", DENSE + [SSM] + MOE)
 def test_batched_generation_matches_oracle(arch):
     jax_side, (cfg, model) = _make(arch)
     eng = ServeEngine(cfg, model, max_batch=4, max_seq=32)
@@ -106,7 +110,7 @@ def test_mixed_lengths_grouped():
     _check_oracles(jax_side, (cfg, model), reqs, out)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", SSM])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", SSM, *MOE])
 def test_staggered_admission_matches_oracle(arch):
     """max_batch=2 over 5 mixed-length / mixed-budget requests: requests
     are admitted mid-decode into slots whose neighbour is at a different
@@ -276,6 +280,30 @@ def test_serve_lm_serves_falcon_mamba_on_the_cpu(capsys):
     the SSM family through both acts at reduced widths."""
     from repro_torch import serve_lm
     serve_lm.main(["--device", "cpu", "--arch", SSM])
+    text = capsys.readouterr().out
+    assert "[runtime] served 6 requests" in text
+    assert "== oracle" in text and "[continuous] 6 requests" in text
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_cache_batch_axes_probe_the_superblock_layout(arch):
+    """The continuous engine finds the batch axis of the (n_super, period,
+    B, smax, K, hd) cache by probing, and its slot cache takes that
+    layout."""
+    _, (cfg, model) = _make(arch)
+    eng = ContinuousEngine(cfg, model, max_batch=3, max_seq=16)
+    period = cfg.moe_layer_period
+    assert eng._axes == {"k": 2, "v": 2}
+    assert tuple(eng.cache["k"].shape) == (
+        cfg.n_layers // period, period, 3, 16, cfg.n_kv_heads, cfg.head_dim)
+
+
+def test_serve_lm_serves_qwen2_moe_on_the_cpu(capsys):
+    """``python -m repro_torch.serve_lm --device cpu --arch
+    qwen2-moe-a2.7b``: the MoE family through both acts at reduced
+    widths."""
+    from repro_torch import serve_lm
+    serve_lm.main(["--device", "cpu", "--arch", MOE[0]])
     text = capsys.readouterr().out
     assert "[runtime] served 6 requests" in text
     assert "== oracle" in text and "[continuous] 6 requests" in text
