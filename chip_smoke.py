@@ -13,7 +13,9 @@ Phases, one JSON line each:
             bit-exact, ids outside [0, B) left at dest -1 and uncounted, a
             second call bit-identical; flash_attention within 2e-5 in f32
             and 2e-2 in bf16, and a bf16 result also within 4e-3 + 2e-2 *
-            |plain| of the plain version run in f32; ssm_scan's y and final state within
+            |plain| of the plain version run in f32, causal or not as the
+            main path calls it (whisper's encoder and cross-attention:
+            non-causal, Sq != Sk); ssm_scan's y and final state within
             1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes, and a second
             call bit-identical;
             bitonic_sort's keys and payloads bit-identical), and its time
@@ -70,6 +72,20 @@ Phases, one JSON line each:
             18.7 B parameters with the embeddings), bf16: ServeEngine
             serves 4 requests of 512-2048 tokens, 16 new tokens each,
             flash_attention twice a prefill; prefill and decode times
+  serve_vlm internvl2-1b at its published widths in bf16 (24 layers, 14/2
+            heads: GQA group 7; 0.49 B parameters), the serve requests
+            after its 256 stub patch embeddings (zeros), both acts and
+            timings as serve
+  serve_vlm_f32  its widths with 2 layers in float32: tokens equal the
+            full-forward oracle's
+  serve_audio  whisper-medium at its published widths in bf16 (24 encoder
+            and 24 decoder layers, 16 heads; 0.96 B parameters) on
+            Whisper's own decoding traffic: prompts of 4-223 tokens over
+            1500 stub frames (zeros), each prompt with its new tokens
+            within n_text_ctx 448; flash_attention 72 times a prefill (the
+            encoder, the decoder's self- and cross-attention)
+  serve_audio_f32  its widths with 2 + 2 layers in float32: tokens equal
+            the full-forward oracle's
   sort      bitonic_sort's own path, the row sorts of the JAX package's
             benchmark (4 rows of 2^18 int32 keys in [0, 2^30),
             benchmarks/bench_kernels.py) and of its test sweep, through the
@@ -91,6 +107,16 @@ Phases, one JSON line each:
   train_moe qwen2-moe-a2.7b at its published widths in bf16, 4 of its 24
             layers (2.90 B parameters), the same 5 steps: the loss falls,
             step time, peak memory under 80 GB
+  train_ssm falcon-mamba-7b at its published widths in bf16, 4 of its 64
+            layers, the same 5 steps through ssm_scan under autograd
+            (SSMScan): ssm_scan twice a layer a step under remat; then
+            SSMScan's gradients bit-equal to autograd of ssm_scan_chunked
+            at (1, 2048, 8192, 16) and the backward's transient memory
+  train_vlm / train_audio  internvl2-1b (1 x 2048 tokens after 256 patch
+            embeddings) and whisper-medium (1500 frames, 448 tokens) at
+            their published widths and full depth, bf16, 3 steps: the loss
+            falls, step time, peak memory under 80 GB; whisper runs
+            FlashAttention's backward for non-causal Sq != Sk
   train_cpu_gpu  the ci preset, 10 steps from the same parameters and
             batches on cuda:0 (TF32 off) and on the CPU: losses within 1e-4
             relative
@@ -100,12 +126,13 @@ Phases, one JSON line each:
             after step 12, the retry resumes from step 10 and finishes; the
             session's trace exported by the port's Perfetto export
 
-The main-path phases (dist, pipeline, shuffle, process, the seven serve
-phases, sort and the five train phases)
+The main-path phases (dist, pipeline, shuffle, process, the eleven serve
+phases, sort and the eight train phases)
 each start with every kernel's launch count at 0 and fail unless each
-kernel that the phase's path runs launched (serve_ssm, serve_moe and
-serve_llama4: exactly once per layer per prefill; the train phases:
-flash_attention once per layer per forward, twice under remat).  Then
+kernel that the phase's path runs launched (the bf16 serve phases and
+serve_llama4: exactly once per layer per prefill, whisper's decoder layers
+twice; the train phases: once per layer per forward, twice under
+remat).  Then
 come the kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -152,6 +179,15 @@ CARD = "cuda:0"                 # the device of the train and MoE phases
 TRAIN_ETL_STEPS, TRAIN_ETL_SAVED, TRAIN_ETL_EVERY = 60, 40, 20
 TRAIN_RESUME_RTOL = 1e-5        # resumed against uninterrupted losses
 TRAIN_QWEN3_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+VLM_ARCH, AUDIO_ARCH = "internvl2-1b", "whisper-medium"
+# Whisper's own decoding: the 4 start-of-transcript tokens, alone or after
+# a previous-text prompt (at most n_text_ctx // 2 = 224 tokens in all), and
+# a prompt with its new tokens within n_text_ctx = 448 (arXiv:2212.04356;
+# openai/whisper decoding.py)
+AUDIO_TEXT_CTX = 448
+AUDIO_PROMPTS = [4, 4, 4, 4, 100, 100, 223, 223]
+AUDIO_BUDGETS = [128, 64] * 4
+TRAIN_SSM_LAYERS, TRAIN_FULL_STEPS = 4, 3
 TRAIN_CPU_GPU_STEPS, TRAIN_CPU_GPU_RTOL = 10, 1e-4
 TASK_STEPS, TASK_CKPT_EVERY, TASK_FAIL_AT = 20, 5, 12
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
@@ -211,8 +247,9 @@ KERNEL_NAMES = {"radix_partition": RADIX_KERNELS,
 
 def profile(fn) -> dict:
     """One run of ``fn`` under torch.profiler: the device time by kernel
-    (summed; the port runs on one stream), each port kernel's share, and
-    the device's idle share of the profiled wall time."""
+    (summed; the port runs on one stream), each port kernel's share, the
+    device's idle share of the profiled wall time, and the number of
+    device kernels the run launched."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     sync()
@@ -222,16 +259,17 @@ def profile(fn) -> dict:
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, launched = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
+            launched += 1
     busy = sum(by_name.values())
     if not busy:
         return {"profiled_wall_ms": wall_ms, "device_ms": "not measured"}
     out = {"profiled_wall_ms": wall_ms, "device_ms": busy,
-           "idle_share": 1 - busy / wall_ms}
+           "idle_share": 1 - busy / wall_ms, "device_kernels": launched}
     for kernel, names in KERNEL_NAMES.items():
         out[f"{kernel}_ms"] = sum(v for k, v in by_name.items()
                                   if any(r in k for r in names))
@@ -374,24 +412,42 @@ BF16_F32_ATOL = 4e-3            # bf16 kernel against the plain version in f32
 H100_BF16_FLOPS = 989e12        # dense tensor-core peak (NVIDIA data sheet)
 
 
-def _attention_library(q, k, v):
+def _attention_library(q, k, v, causal=True):
     """scaled_dot_product_attention on the same inputs (a yardstick only;
     the port never calls it)."""
     out = torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
+        is_causal=causal, enable_gqa=True)
     return out.transpose(1, 2)
 
 
+def attention_shapes(cfg, b, s, dtype, prefix=0):
+    """The (B, H, K, Sq, Sk, hd, dtype, causal) of every kernel call one
+    prefill or forward of ``cfg`` makes over ``s`` tokens after ``prefix``
+    rows (a VLM's patches): the decoder's causal self-attention, and an
+    encoder-decoder's encoder over its frames and cross-attention from the
+    tokens to them (both non-causal)."""
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = prefix + s
+    out = [(b, h, kh, n, n, hd, dtype, True)]
+    if cfg.family == "audio":
+        f = cfg.n_encoder_frames
+        out += [(b, h, h, f, f, hd, dtype, False),
+                (b, h, h, n, f, hd, dtype, False)]
+    return out
+
+
 def _attention_spec():
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.train_lm import model_for
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
 
     def inputs(shape, gen):
-        b, h, kh, s, hd, dtype = shape
+        b, h, kh, sq, sk, hd, dtype, _ = shape
         return tuple(
             torch.randn(dims, generator=gen, device="cuda").to(dtype)
-            for dims in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+            for dims in ((b, sq, h, hd), (b, sk, kh, hd), (b, sk, kh, hd)))
 
     def compare(out, ref, args, yardstick=False, shape=()):
         """Largest absolute difference from the plain version, and whether
@@ -408,7 +464,8 @@ def _attention_spec():
         ok = bool((diff <= tol + tol * ref.float().abs()).all())
         info = {}
         if out.dtype == torch.bfloat16 and not yardstick:
-            ref32 = fa.flash_attention_plain(*(a.float() for a in args))
+            ref32 = fa.flash_attention_plain(*(a.float() for a in args),
+                                             causal=shape[-1])
             diff32 = (out.float() - ref32).abs()
             info["max_abs_err_vs_f32_plain"] = float(diff32.max())
             ok = ok and bool(
@@ -416,21 +473,42 @@ def _attention_spec():
         return float(diff.max()), ok, info
 
     def bound(shape):
-        b, h, kh, s, hd, dtype = shape
-        flops = 4 * hd * h * b * s * (s + 1) / 2        # causal pairs
+        """4 hd FLOPs an unmasked (row, col) pair a head: S (S + 1) / 2
+        pairs causal, Sq Sk not; bytes: q, o, k, v once."""
+        b, h, kh, sq, sk, hd, dtype, causal = shape
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
+        flops = 4 * hd * h * b * pairs
         size = 2 if dtype == torch.bfloat16 else 4
-        nbytes = size * hd * b * s * (2 * h + 2 * kh)   # q, o, k, v once
+        nbytes = size * hd * b * (2 * h * sq + 2 * kh * sk)
         by_ops = flops / H100_BF16_FLOPS * 1e3
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return max(by_ops, by_bytes), \
             "operations" if by_ops >= by_bytes else "bytes"
 
     def describe(shape):
-        b, h, kh, s, hd, dtype = shape
-        return {"B": b, "H": h, "K": kh, "S": s, "hd": hd,
-                "dtype": str(dtype).removeprefix("torch.")}
+        b, h, kh, sq, sk, hd, dtype, causal = shape
+        return {"B": b, "H": h, "K": kh, "Sq": sq, "Sk": sk, "hd": hd,
+                "dtype": str(dtype).removeprefix("torch."),
+                "causal": causal}
+
+    def serve_shapes(cfg, prompts, prefix=0):
+        """Every prefill of a serve phase: act 2's of each prompt alone,
+        act 1's of each length group in batches of SERVE_MAX_BATCH."""
+        return [sh for n in sorted(set(prompts), reverse=True)
+                for b in sorted({1, *(min(SERVE_MAX_BATCH, prompts.count(n)
+                                          - i) for i in range(
+                                  0, prompts.count(n), SERVE_MAX_BATCH))})
+                for sh in attention_shapes(cfg, b, n, bf16, prefix)]
+
+    def f32_shapes(cfg, prefix=0):
+        """The f32 serve phases: the oracle's forward at every length from
+        the prompt's to the prompt's plus F32_NEW - 1, and the engine's
+        prefill at the prompt's."""
+        return [sh for n in F32_PROMPTS for d in range(F32_NEW)
+                for sh in attention_shapes(cfg, 1, n + d, f32, prefix)]
 
     bf16, f32 = torch.bfloat16, torch.float32
+    qwen3 = (32, 8, 128)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -438,7 +516,8 @@ def _attention_spec():
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:59",
         "build": fa.load,
-        "wrapper": fa.flash_attention,          # causal by default
+        "wrapper": fa.flash_attention,
+        "shape_kwargs": lambda shape: {"causal": shape[-1]},
         "plain": fa.flash_attention_plain,
         "library": _attention_library,
         "inputs": inputs, "compare": compare, "bound": bound,
@@ -447,49 +526,76 @@ def _attention_spec():
                      f"also |kernel - plain in f32| <= {BF16_F32_ATOL} + "
                      f"{BF16_TOL} * |plain in f32|",
         "describe": describe,
-        # (B, H, K, S, hd, dtype) of every prefill and forward of the serve
-        # phases; the first is the timed one.  serve_f32's oracle runs a
-        # forward at every length from the prompt's to the prompt's plus
-        # F32_NEW - 1, and the engine's prefill at the prompt's.
-        "main_shapes": (
-            *((1, 32, 8, s, 128, bf16) for s in sorted(set(SERVE_PROMPTS),
-                                                       reverse=True)),
-            *((2, 32, 8, s, 128, bf16) for s in sorted(
+        # (B, H, K, Sq, Sk, hd, dtype, causal) of every prefill and forward
+        # of the serve and train phases; the first is the timed one.
+        "main_shapes": tuple(dict.fromkeys((
+            *((b, *qwen3[:2], s, s, qwen3[2], bf16, True)
+              for b, s in ((1, s) for s in sorted(set(SERVE_PROMPTS),
+                                                   reverse=True))),
+            *((2, *qwen3[:2], s, s, qwen3[2], bf16, True) for s in sorted(
                 {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
-            *((1, 32, 8, s + d, 128, f32) for s in F32_PROMPTS
-              for d in range(F32_NEW)),
+            *((1, *qwen3[:2], s + d, s + d, qwen3[2], f32, True)
+              for s in F32_PROMPTS for d in range(F32_NEW)),
             # the train phases' f32 forwards: the full preset (train_etl)
             # and the ci preset (train_cpu_gpu, train_task); train_qwen3's
             # is the first shape
             *((sh.global_batch, c.n_heads, c.n_kv_heads, sh.seq_len,
-               c.head_dim, f32) for c, sh, _ in map(model_for,
-                                                    ("full", "ci"))),
+               sh.seq_len, c.head_dim, f32, True)
+              for c, sh, _ in map(model_for, ("full", "ci"))),
             # qwen2-moe (16 heads, 16 kv heads): serve_moe's prefills as
             # serve's, its drop counts' B x 2048 prefills and train_moe's
             # forward (1 x 2048); serve_moe_f32's as serve_f32's
-            *((1, 16, 16, s, 128, bf16) for s in sorted(set(SERVE_PROMPTS),
-                                                        reverse=True)),
-            *((2, 16, 16, s, 128, bf16) for s in sorted(
+            *((1, 16, 16, s, s, 128, bf16, True)
+              for s in sorted(set(SERVE_PROMPTS), reverse=True)),
+            *((2, 16, 16, s, s, 128, bf16, True) for s in sorted(
                 {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
-            *((b, 16, 16, MOE_DROP_SEQ, 128, bf16) for b in MOE_DROP_BATCHES
-              if b > 2),
-            *((1, 16, 16, s + d, 128, f32) for s in F32_PROMPTS
+            *((b, 16, 16, MOE_DROP_SEQ, MOE_DROP_SEQ, 128, bf16, True)
+              for b in MOE_DROP_BATCHES if b > 2),
+            *((1, 16, 16, s + d, s + d, 128, f32, True) for s in F32_PROMPTS
               for d in range(F32_NEW)),
             # llama4-maverick (40 heads, 8 kv heads): serve_llama4's
             # prefills, and the 4 x 512 one its decode rounds start from
-            *((1, 40, 8, s, 128, bf16) for s in LLAMA4_PROMPTS),
-            (SERVE_MAX_BATCH, 40, 8, LLAMA4_DECODE_FROM, 128, bf16),
-        ),
+            *((1, 40, 8, s, s, 128, bf16, True) for s in LLAMA4_PROMPTS),
+            (SERVE_MAX_BATCH, 40, 8, LLAMA4_DECODE_FROM, LLAMA4_DECODE_FROM,
+             128, bf16, True),
+            # internvl2-1b (14 heads, 2 kv heads: GQA group 7, hd 64; its
+            # n_patches rows before the tokens): serve_vlm's prefills,
+            # serve_vlm_f32's, train_vlm's forward
+            *serve_shapes(vlm, SERVE_PROMPTS, vlm.n_patches),
+            *f32_shapes(vlm, vlm.n_patches),
+            *attention_shapes(vlm, 1, TRAIN_SEQ, bf16, vlm.n_patches),
+            # whisper-medium (16 heads, hd 64): the encoder over 1500
+            # frames, the decoder's self-attention and its cross-attention
+            # (Sq != Sk, non-causal) of serve_audio's prefills,
+            # serve_audio_f32's and train_audio's forward
+            *serve_shapes(audio, AUDIO_PROMPTS),
+            *f32_shapes(audio),
+            *attention_shapes(audio, 1, AUDIO_TEXT_CTX, bf16),
+        ))),
         # the dense prefill's shape (the summary line's), then a 2048-token
-        # prefill of qwen2-moe and of llama4-maverick
-        "timed": ((1, 32, 8, 2048, 128, bf16), (1, 16, 16, 2048, 128, bf16),
-                  (1, 40, 8, 2048, 128, bf16)),
-        "sweep": tuple(
-            (b, h, kh, s, hd, dtype)
-            for b, s, h, kh, hd in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64),
-                                    (1, 130, 8, 8, 32), (2, 384, 6, 3, 128),
-                                    (1, 1, 4, 2, 16), (1, 17, 8, 2, 128))
-            for dtype in (f32, bf16)),
+        # prefill of qwen2-moe and of llama4-maverick, internvl2-1b's
+        # train forward (GQA group 7), whisper's encoder and its train
+        # forward's cross-attention (non-causal, all Sq Sk pairs)
+        "timed": ((1, *qwen3[:2], 2048, 2048, qwen3[2], bf16, True),
+                  (1, 16, 16, 2048, 2048, 128, bf16, True),
+                  (1, 40, 8, 2048, 2048, 128, bf16, True),
+                  *attention_shapes(vlm, 1, TRAIN_SEQ, bf16, vlm.n_patches),
+                  *attention_shapes(audio, 1, AUDIO_TEXT_CTX, bf16)[1:]),
+        "sweep": (
+            *((b, h, kh, s, s, hd, dtype, True)
+              for b, s, h, kh, hd in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64),
+                                      (1, 130, 8, 8, 32), (2, 384, 6, 3, 128),
+                                      (1, 1, 4, 2, 16), (1, 17, 8, 2, 128),
+                                      (2, 300, 14, 2, 64))
+              for dtype in (f32, bf16)),
+            # non-causal, Sq against Sk shorter, equal and longer, on and
+            # off the 128-row tiles
+            *((b, h, kh, sq, sk, 64, dtype, False)
+              for b, sq, sk, h, kh in ((1, 1, 1500, 16, 16),
+                                       (2, 37, 300, 14, 2),
+                                       (1, 300, 37, 8, 8),
+                                       (2, 129, 129, 16, 16))
+              for dtype in (f32, bf16))),
     }
 
 
@@ -598,7 +704,7 @@ def _ssm_spec():
                      f"|exact| for the state",
         "describe": describe,
         # (B, S, D, N, dtypes) of every prefill and forward of the SSM serve
-        # phases; the first is the timed one.  serve_ssm_f32's oracle runs a
+        # phases and of train_ssm's forward; the first is the timed one.  serve_ssm_f32's oracle runs a
         # forward at every length from the prompt's to the prompt's plus
         # F32_NEW - 1, and the engine's prefill at the prompt's.
         "main_shapes": (
@@ -794,13 +900,12 @@ def phase_kernels(specs, gen):
     for spec in specs:
         shapes = [(s, True) for s in spec["main_shapes"]] + [
             (s, False) for s in spec["sweep"]]
-        kw = spec.get("kwargs", {})
         checks = [check_kernel(spec, shape, gen, main_path)
                   for shape, main_path in shapes]
         max_err = max(c["max_abs_err"] for c in checks)
         # the first main-path shape goes into the kernel summary line;
         # "timed" names more shapes to time (their numbers go to this line)
-        timings = [_time_kernel(spec, shape, gen, kw) for shape in
+        timings = [_time_kernel(spec, shape, gen) for shape in
                    spec.get("timed", spec["main_shapes"][:1])]
         t = timings[0]
         records[spec["name"]] = {
@@ -815,10 +920,21 @@ def phase_kernels(specs, gen):
     return records
 
 
+def _shape_kwargs(spec, shape) -> dict:
+    """The keyword arguments the shape names (flash_attention: causal)."""
+    return spec.get("shape_kwargs", lambda _: {})(shape)
+
+
+def _kwargs(spec, shape) -> dict:
+    """The wrapper's and the plain version's keyword arguments at
+    ``shape``: the spec's own and the shape's."""
+    return {**spec.get("kwargs", {}), **_shape_kwargs(spec, shape)}
+
+
 def check_kernel(spec, shape, gen, main_path: bool) -> dict:
     """The kernel's wrapper against its plain version on inputs at
     ``shape``; raises unless they agree within the spec's tolerance."""
-    kw = spec.get("kwargs", {})
+    kw = _kwargs(spec, shape)
     args = spec["inputs"](shape, gen)
     out = spec["wrapper"](*args, **kw)
     ref = spec["plain"](*args, **kw)
@@ -831,10 +947,11 @@ def check_kernel(spec, shape, gen, main_path: bool) -> dict:
             "max_abs_err": err, **info}
 
 
-def _time_kernel(spec, shape, gen, kw) -> dict:
+def _time_kernel(spec, shape, gen) -> dict:
     """The kernel's time at ``shape`` beside its bound, its plain version's
     and its library yardstick's, on inputs to which the kernel and the
     yardstick are first held as a check holds them."""
+    kw, lib_kw = _kwargs(spec, shape), _shape_kwargs(spec, shape)
     args = spec["inputs"](shape, gen)
     err, ok, _ = spec["compare"](spec["wrapper"](*args, **kw),
                                  spec["plain"](*args, **kw), args,
@@ -845,13 +962,13 @@ def _time_kernel(spec, shape, gen, kw) -> dict:
                              f"{err}")
     lib_err = library_ms = None
     if spec["library"] is not None:
-        lib_err, lib_ok, _ = spec["compare"](spec["library"](*args),
-                                             spec["plain"](*args), args,
-                                             yardstick=True)
+        lib_err, lib_ok, _ = spec["compare"](
+            spec["library"](*args, **lib_kw), spec["plain"](*args, **kw),
+            args, yardstick=True)
         if not lib_ok:
             raise AssertionError(f"{spec['name']}: library yardstick "
                                  f"differs by {lib_err}")
-        library_ms = time_ms(lambda: spec["library"](*args))
+        library_ms = time_ms(lambda: spec["library"](*args, **lib_kw))
     ms = time_ms(lambda: spec["wrapper"](*args, **kw))
     plain_ms = time_ms(lambda: spec["plain"](*args, **kw), reps=5, warmup=1)
     bound_ms, bound_by = spec["bound"](shape)
@@ -1246,14 +1363,20 @@ def _check_tokens(cfg, reqs, out, act):
             raise AssertionError(f"{act}: request {r.uid} gave {t!r}")
 
 
-def phase_serve(cfg, params, devices):
-    """Both acts of python -m repro_torch.serve_lm at ``cfg``'s widths.
+SERVE_TRAFFIC = (SERVE_PROMPTS, SERVE_BUDGETS, SERVE_MAX_SEQ)
+AUDIO_TRAFFIC = (AUDIO_PROMPTS, AUDIO_BUDGETS, AUDIO_TEXT_CTX)
+
+
+def phase_serve(cfg, params, devices, traffic=SERVE_TRAFFIC):
+    """Both acts of python -m repro_torch.serve_lm at ``cfg``'s widths on
+    ``traffic`` (prompt lengths, new tokens, the engines' max_seq).
     Returns the phase's record, the continuous engine and the requests."""
     from repro_torch.serve_lm import (act_continuous, act_static,
                                       make_requests)
-    reqs = make_requests(cfg, SERVE_PROMPTS, SERVE_BUDGETS)
+    prompts, budgets, max_seq = traffic
+    reqs = make_requests(cfg, prompts, budgets)
     tokens = sum(r.max_new_tokens for r in reqs)
-    kw = dict(max_batch=SERVE_MAX_BATCH, max_seq=SERVE_MAX_SEQ,
+    kw = dict(max_batch=SERVE_MAX_BATCH, max_seq=max_seq,
               etl_rows=PIPE_ROWS)
     (static, rep1), s1 = wall(lambda: act_static(cfg, params, reqs, devices,
                                                  **kw))
@@ -1266,11 +1389,12 @@ def phase_serve(cfg, params, devices):
     agree = sum(int((static[r.uid] == cont[r.uid]).sum()) for r in reqs)
     # act 1 prefills each length group in batches of max_batch, act 2 each
     # request alone
-    prefills = sum(-(-SERVE_PROMPTS.count(n) // SERVE_MAX_BATCH)
-                   for n in set(SERVE_PROMPTS)) + len(reqs)
+    prefills = sum(-(-prompts.count(n) // SERVE_MAX_BATCH)
+                   for n in set(prompts)) + len(reqs)
     return {
-        "requests": len(reqs), "prompt_lengths": SERVE_PROMPTS,
-        "max_new_tokens": SERVE_BUDGETS, "generated_tokens": tokens,
+        "requests": len(reqs), "prompt_lengths": prompts,
+        "max_new_tokens": budgets, "max_seq": max_seq,
+        "generated_tokens": tokens,
         "prefills": prefills,
         "act1_static": {"wall_s": s1, "makespan_s": rep1.makespan,
                         "tokens_per_s": tokens / s1},
@@ -1290,10 +1414,11 @@ def phase_serve(cfg, params, devices):
 def serve_timings(engine, reqs):
     """Prefill ms per prompt length (median of 3), decode ms per round with
     all SERVE_MAX_BATCH slots live (median of 10 after 2), and a profile of
-    one 2048-token prefill."""
+    one prefill of the longest prompt."""
     from repro_torch.serve import Request
+    lengths = sorted({len(r.prompt) for r in reqs})
     prefill_ms = {}
-    for n in sorted(set(SERVE_PROMPTS)):
+    for n in lengths:
         r = next(r for r in reqs if len(r.prompt) == n)
         prefill_ms[n] = statistics.median(
             wall(lambda: engine.prefill_request(r))[1] * 1e3
@@ -1304,23 +1429,39 @@ def serve_timings(engine, reqs):
     if engine.slots_active != SERVE_MAX_BATCH:
         raise AssertionError(f"{engine.slots_active} live slots")
     rounds = [wall(engine.decode_round)[1] * 1e3 for _ in range(12)]
-    longest = next(r for r in reqs if len(r.prompt) == max(SERVE_PROMPTS))
+    longest = next(r for r in reqs if len(r.prompt) == lengths[-1])
     return {"prefill_ms": prefill_ms,
             "decode_ms_per_round": statistics.median(rounds[2:]),
             "decode_live_slots": SERVE_MAX_BATCH,
-            "profile_prefill_2048": profile(
+            f"profile_prefill_{lengths[-1]}": profile(
                 lambda: engine.prefill_request(longest))}
 
 
-def run_serve(arch, specs, records, kernels, extra=None):
-    """``arch`` at its published widths in bf16 through phase_serve under
-    MainPath(``kernels``), then its timings and ``extra(cfg, params)``'s
-    record, if given.  Returns the phase's record and the launch counts of
-    the main-path run."""
+def launches_per_forward(cfg) -> dict:
+    """The kernel launches one forward or prefill of ``cfg`` makes:
+    flash_attention once a layer (an encoder-decoder: once an encoder
+    layer, twice a decoder layer: its self- and cross-attention), ssm_scan
+    once a Mamba layer."""
+    if cfg.family == "ssm":
+        return {"ssm_scan": cfg.n_layers}
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers}
+    return {"flash_attention": cfg.n_layers}
+
+
+def run_serve(arch, specs, records, kernels, extra=None,
+              traffic=SERVE_TRAFFIC):
+    """``arch`` at its published widths in bf16 through phase_serve on
+    ``traffic`` under MainPath(``kernels``), then its timings and
+    ``extra(cfg, params)``'s record, if given.  Each model kernel of the
+    family launched exactly ``launches_per_forward`` times a prefill, and
+    nothing else launched it.  Returns the phase's record (the main-path
+    run's launch counts under ``launches``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import logical_devices
     from repro_torch.models.transformer import param_count
     from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import prompt_prefix_len
     cfg = get_config(arch)
     free_device_memory()
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -1329,20 +1470,29 @@ def run_serve(arch, specs, records, kernels, extra=None):
     weights_gb = sum(p.numel() * p.element_size()
                      for p in params.parameters()) / 1e9
     # first-use costs (cuBLAS handles, the allocator) before the count
-    ServeEngine(cfg, params, max_batch=1, max_seq=128).run_requests(
+    ServeEngine(cfg, params, max_batch=1,
+                max_seq=prompt_prefix_len(cfg) + 128).run_requests(
         [Request(prompt=np.arange(64, dtype=np.int32), max_new_tokens=2)])
     with MainPath(specs, records, kernels) as mp:
         res, engine, reqs = phase_serve(cfg, params,
-                                        logical_devices(N_RANKS, "cuda:0"))
+                                        logical_devices(N_RANKS, "cuda:0"),
+                                        traffic)
     counts = mp.counts()
+    per_prefill = launches_per_forward(cfg)
+    for kernel, n in per_prefill.items():
+        if counts[kernel] != n * res["prefills"]:
+            raise AssertionError(f"{arch}: {kernel} launched "
+                                 f"{counts[kernel]} times for "
+                                 f"{res['prefills']} prefills of {n}")
     res.update(serve_timings(engine, reqs))
     if extra is not None:
         res.update(extra(cfg, params))
     res.update(arch=arch, n_layers=cfg.n_layers,
+               launches_per_prefill=per_prefill,
                param_count=param_count(params), weights_gb=weights_gb,
                init_s=init_s, launches=counts, allocated_gb_at_start=start_gb,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return res, counts
+    return res
 
 
 def free_device_memory():
@@ -1361,6 +1511,7 @@ def phase_serve_f32(arch, **overrides):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve.engine import prompt_prefix_len
     from repro_torch.serve_lm import make_requests
     # full f32 products and convolutions on both sides of the comparison:
     # TF32 would keep about three digits and let near-tied logits flip
@@ -1372,13 +1523,14 @@ def phase_serve_f32(arch, **overrides):
     params = serve_model(cfg)
     reqs = make_requests(cfg, F32_PROMPTS, [F32_NEW] * len(F32_PROMPTS),
                          seed=1)
-    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=512).run(reqs)
+    out = ContinuousEngine(cfg, params, max_batch=2,
+                           max_seq=prompt_prefix_len(cfg) + 512).run(reqs)
     for r in reqs:
         ref = greedy_reference(cfg, params, r.prompt, r.max_new_tokens)
         if not np.array_equal(out[r.uid], ref):
             raise AssertionError(f"f32 request {r.uid}: {out[r.uid]} != "
                                  f"oracle {ref}")
-    return {"arch": arch, "layers": 2, "dtype": "float32",
+    return {"arch": arch, "layers": 2, **overrides, "dtype": "float32",
             "prompt_lengths": F32_PROMPTS, "max_new_tokens": F32_NEW,
             "tokens_equal_oracle": True, "tf32": False}
 
@@ -1743,40 +1895,44 @@ def phase_train_etl(specs, records, gen):
     return out
 
 
-def train_published(specs, records, arch, n_layers) -> tuple:
-    """``arch`` at its published widths in bf16, ``n_layers`` of its
-    layers: TRAIN_STEPS AdamW steps on one fixed batch of 1 x
-    TRAIN_SEQ tokens, flash_attention once a layer a forward (twice
-    under remat); the loss must fall.  Returns the record and the
-    trainer's attention mode."""
+def train_published(specs, records, arch, n_layers=None, steps=TRAIN_STEPS,
+                    seq=TRAIN_SEQ) -> tuple:
+    """``arch`` at its published widths in bf16, ``n_layers`` of its layers
+    (all of them by default): ``steps`` AdamW steps on one fixed batch of 1
+    x ``seq`` tokens (with a VLM's patch embeddings or an audio model's
+    frames, drawn from a seed), each model kernel of the family
+    ``launches_per_forward`` times a forward (twice under remat); the loss
+    must fall.  Returns the record and the trainer's attention mode."""
     import dataclasses
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
     from repro_torch.models import make_concrete_batch, train_batch_shapes
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import Trainer
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-    s, steps = TRAIN_SEQ, TRAIN_STEPS
-    shape = ShapeConfig("t", "train", s, 1)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    shape = ShapeConfig("t", "train", seq, 1)
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, ParallelConfig(), shape,
                  OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
                                  total_steps=steps), device=CARD)
-    batch = make_concrete_batch(train_batch_shapes(cfg, 1, s),
+    batch = make_concrete_batch(train_batch_shapes(cfg, 1, seq),
                                 np.random.default_rng(0), cfg.vocab_size,
                                 CARD)
-    with MainPath(specs, records, ("flash_attention",)) as mp:
+    per_step = {k: n * (2 if cfg.remat else 1)
+                for k, n in launches_per_forward(cfg).items()}
+    with MainPath(specs, records, tuple(per_step)) as mp:
         state, init_s = wall(tr.init_state)
         stamps = {}
         (state, losses), fit_s = wall(lambda: tr.fit(
             [batch] * steps, steps, state, log_every=0,
             on_metrics=_step_times(stamps)))
     counts = mp.counts()
-    per_step = cfg.n_layers * (2 if cfg.remat else 1)
-    if counts["flash_attention"] != per_step * steps:
-        raise AssertionError(f"flash_attention launched "
-                             f"{counts['flash_attention']} times in {steps} "
-                             f"steps of {per_step}")
+    for kernel, n in per_step.items():
+        if counts[kernel] != n * steps:
+            raise AssertionError(f"{arch}: {kernel} launched "
+                                 f"{counts[kernel]} times in {steps} steps "
+                                 f"of {n}")
     if not (losses[-1] < losses[0] and np.all(np.isfinite(losses))):
         raise AssertionError(f"the loss did not fall: {losses}")
     params = sum(p.numel() for p in state.params.parameters())
@@ -1788,14 +1944,18 @@ def train_published(specs, records, arch, n_layers) -> tuple:
     del state, tr
     free_device_memory()
     step_ms = _step_ms(stamps["t"])
-    return {"arch": arch, "n_layers": cfg.n_layers,
+    return {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
+            "n_encoder_layers": cfg.n_encoder_layers,
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
-            "batch": 1, "seq": s, "param_count": params, "init_s": init_s,
+            "batch": 1, "seq": seq,
+            "inputs": {k: list(v[0]) for k, v in
+                       train_batch_shapes(cfg, 1, seq).items()},
+            "param_count": params, "init_s": init_s,
             "fit_s": fit_s, "losses": losses, "step_ms": step_ms,
-            "tokens_per_s": s / step_ms * 1e3, "peak_gb": peak_gb,
-            "flash_attention_launches_per_step": per_step, **split,
+            "tokens_per_s": seq / step_ms * 1e3, "peak_gb": peak_gb,
+            "launches_per_step": per_step, **split,
             "launches": counts}, mode
 
 
@@ -1840,6 +2000,50 @@ def phase_train_moe(specs, records):
     return {**res, "n_experts": cfg.n_experts, "top_k": cfg.top_k,
             "n_shared_experts": cfg.n_shared_experts,
             "capacity": moe.capacity(TRAIN_SEQ, cfg)}
+
+
+def phase_train_ssm(specs, records, gen):
+    """falcon-mamba-7b at its published widths in bf16, TRAIN_SSM_LAYERS of
+    its 64 layers (train_published): ssm_scan's forward under autograd
+    through SSMScan.  Then SSMScan's gradients at one layer's shape held
+    bit-equal to autograd of ssm_scan_chunked on the same inputs, and the
+    backward's transient device memory above its inputs and output."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    res, _ = train_published(specs, records, SSM_ARCH, TRAIN_SSM_LAYERS)
+    cfg = get_config(SSM_ARCH)
+    spec = next(s for s in specs if s["name"] == "ssm_scan")
+    shape = (1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX)
+    args = [t.detach().requires_grad_() for t in spec["inputs"](shape, gen)]
+    g = torch.randn((1, TRAIN_SEQ, cfg.d_inner), generator=gen,
+                    device="cuda")
+    y = ssm.SSMScan.apply(*args)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = torch.autograd.grad(y, args, g)
+    sync()
+    transient = torch.cuda.max_memory_allocated() - base
+    want = torch.autograd.grad(ssm.ssm_scan_chunked(*args), args, g)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("SSMScan's gradients differ from autograd of "
+                             "ssm_scan_chunked")
+    chunk_gb = shape[0] * ssm.SCAN_CHUNK * cfg.d_inner * cfg.ssm_state * 4e-9
+    return {**res, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+            "grad_check": {"shape": list(shape[:4]),
+                           "dtypes": ["float32", "bfloat16", "bfloat16",
+                                      "bfloat16"],
+                           "scan_chunk": ssm.SCAN_CHUNK, "bit_equal": True,
+                           "backward_transient_gb": transient / 1e9,
+                           "one_chunk_tensor_gb": chunk_gb}}
+
+
+def phase_train_full_depth(specs, records, arch, seq):
+    """``arch`` at its published widths and full depth in bf16,
+    TRAIN_FULL_STEPS steps (train_published)."""
+    res, mode = train_published(specs, records, arch,
+                                steps=TRAIN_FULL_STEPS, seq=seq)
+    return {**res, "backward_path": mode.kind}
 
 
 def phase_train_cpu_gpu(specs, records):
@@ -1986,43 +2190,47 @@ def main() -> int:
         res = phase_process(records, thread_makespans)
     emit("process", launches=mp.counts(), **res)
 
-    res, _ = run_serve(SERVE_ARCH, specs, records, radix + attention)
+    res = run_serve(SERVE_ARCH, specs, records, radix + attention)
     emit("serve", **res)
     with MainPath(specs, records, attention) as mp:
         res = phase_serve_f32(SERVE_ARCH)
     emit("serve_f32", launches=mp.counts(), **res)
 
-    res, counts = run_serve(SSM_ARCH, specs, records, radix + scan)
-    # every prefill runs the scan once per layer, and nothing else does
-    want = res["n_layers"] * res["prefills"]
-    if counts["ssm_scan"] != want:
-        raise AssertionError(f"ssm_scan launched {counts['ssm_scan']} times "
-                             f"for {res['prefills']} prefills of "
-                             f"{res['n_layers']} layers ({want})")
-    emit("serve_ssm", ssm_scan_launches_per_prefill=res["n_layers"], **res)
+    res = run_serve(SSM_ARCH, specs, records, radix + scan)
+    emit("serve_ssm", **res)
     with MainPath(specs, records, scan) as mp:
         res = phase_serve_f32(SSM_ARCH)
     emit("serve_ssm_f32", launches=mp.counts(), **res)
 
-    res, counts = run_serve(MOE_ARCH, specs, records, radix + attention,
-                            extra=moe_drop_shares)
-    want = res["n_layers"] * res["prefills"]
-    if counts["flash_attention"] != want:
-        raise AssertionError(f"serve_moe: flash_attention launched "
-                             f"{counts['flash_attention']} times for "
-                             f"{res['prefills']} prefills of "
-                             f"{res['n_layers']} layers ({want})")
-    emit("serve_moe", flash_attention_launches_per_prefill=res["n_layers"],
-         **res)
+    res = run_serve(MOE_ARCH, specs, records, radix + attention,
+                    extra=moe_drop_shares)
+    emit("serve_moe", **res)
     with MainPath(specs, records, attention) as mp:
         res = phase_serve_moe_f32(gen)
     emit("serve_moe_f32", launches=mp.counts(), **res)
     emit("serve_llama4", **phase_serve_llama4(specs, records))
 
+    res = run_serve(VLM_ARCH, specs, records, radix + attention)
+    emit("serve_vlm", **res)
+    with MainPath(specs, records, attention) as mp:
+        res = phase_serve_f32(VLM_ARCH)
+    emit("serve_vlm_f32", launches=mp.counts(), **res)
+    res = run_serve(AUDIO_ARCH, specs, records, radix + attention,
+                    traffic=AUDIO_TRAFFIC)
+    emit("serve_audio", **res)
+    with MainPath(specs, records, attention) as mp:
+        res = phase_serve_f32(AUDIO_ARCH, n_encoder_layers=2)
+    emit("serve_audio_f32", launches=mp.counts(), **res)
+
     free_device_memory()
     emit("train_etl", **phase_train_etl(specs, records, gen))
     emit("train_qwen3", **phase_train_qwen3(specs, records, gen))
     emit("train_moe", **phase_train_moe(specs, records))
+    emit("train_ssm", **phase_train_ssm(specs, records, gen))
+    emit("train_vlm", **phase_train_full_depth(specs, records, VLM_ARCH,
+                                               TRAIN_SEQ))
+    emit("train_audio", **phase_train_full_depth(specs, records, AUDIO_ARCH,
+                                                 AUDIO_TEXT_CTX))
     emit("train_cpu_gpu", **phase_train_cpu_gpu(specs, records))
     emit("train_task", **phase_train_task(specs, records))
 

@@ -22,12 +22,19 @@ At the serving shapes, (1, 2048, 8192, 16) and the like, the function is
 bound by its exponentials: one exp per (b, s, d, n), B*S*D*N of them,
 against reading dt and x and writing y once.
 
-A CUDA tensor goes through the kernel or the call raises (so does one that
-asks for a gradient: the kernel has no backward yet, and its output would
-drop it); a CPU tensor goes through :func:`ssm_scan_plain`, the same
-function in plain PyTorch, gradients included; a
+A CUDA tensor goes through the kernel or the call raises; a CPU tensor
+goes through :func:`ssm_scan_plain`, the same function in plain PyTorch; a
 ``meta`` tensor (the serving engines' cache probe) gets ``meta`` results of
-the right shapes and launches nothing.
+the right shapes and launches nothing.  The kernel's output lies outside
+autograd.
+
+Training goes through :class:`SSMScan`, an autograd Function whose forward
+is the wrapper (the kernel, on the card) and whose backward differentiates
+:func:`ssm_scan_chunked` recomputed from the saved inputs: the JAX
+package's chunked associative scan with the C contraction fused
+(``src/repro/models/ssm.py::_assoc_scan_fused``), the function its own
+Mamba1 training differentiates.  The JAX package has no backward kernel
+for the scan either.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels._nvcc import load_library
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -54,6 +62,10 @@ CHUNK = 32                  # time steps staged in shared memory at a time
 BUILDS = (16, 64)
 MAX_STATE = BUILDS[-1]      # largest N
 MAX_BATCH = 65535           # the grid's y dimension
+# time steps per chunk of ssm_scan_chunked: the JAX ModelConfig's default
+# ssm_chunk.  The backward holds one chunk's (B, SCAN_CHUNK, D, N) f32
+# decay, input and state tensors at a time.
+SCAN_CHUNK = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 _load_lock = threading.Lock()
@@ -124,7 +136,6 @@ def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
         return _empty(dt, A, return_state, "meta")
     if dev.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {dev}")
-    refuse_grad(dt, A, Bm, Cm, x)
     if dt.numel() == 0:
         y, h = _empty(dt, A, True, dev)
         y.zero_()
@@ -134,16 +145,6 @@ def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
 
 
 ssm_scan.launches = 0     # kernel launches since the last reset
-
-
-def refuse_grad(*tensors):
-    """Raise if a gradient is asked of any input: the kernel's output lies
-    outside autograd, and a silent zero gradient is worse than none."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssm_scan has no backward on the card: SSM training on the card "
-            "is ROADMAP modules item 13 (an autograd path for ssm_scan); "
-            "train on the CPU or run under torch.no_grad()")
 
 
 def _empty(dt, A, return_state, device):
@@ -240,3 +241,107 @@ def kernel_order(dt, A, Bm, Cm, x, *, max_state=None, lanes=LANES):
             m = o
         y[:, t:t + lanes] = p[..., 0].transpose(1, 2)
     return y[:, :s, :d], h.reshape(b, dp, n_max)[:, :d, :n]
+
+
+# ---------------------------------------------------------------------------
+# training: the chunked scan the backward differentiates, and the Function
+# ---------------------------------------------------------------------------
+def _combine(left, right):
+    """The scan's operator on (decay, state) pairs, ``left`` the earlier:
+    ``jax.lax.associative_scan``'s ``fn`` in ``_assoc_scan_fused``."""
+    (al, bl), (ar, br) = left, right
+    return ar * al, ar * bl + br
+
+
+def _interleave(even, odd):
+    """Elements of ``even`` at the even indices of axis 1, ``odd`` at the
+    odd ones (``even`` as long as ``odd`` or one longer)."""
+    out = even.new_empty((even.shape[0], even.shape[1] + odd.shape[1])
+                         + even.shape[2:])
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def associative_scan(a, b):
+    """The inclusive scan of ``_combine`` over axis 1: the products of the
+    decays ``a`` and the states from a zero start.  A port of
+    ``jax.lax.associative_scan``'s recursion (pairs reduced, the half
+    scanned, the evens filled in from the odds), so the products happen in
+    the JAX package's order."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd = associative_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                     (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        odd_prev = (odd[0][:, :-1], odd[1][:, :-1])
+    else:
+        odd_prev = odd
+    even = _combine(odd_prev, (a[:, 2::2], b[:, 2::2]))
+    return tuple(_interleave(torch.cat([e0[:, :1], e], dim=1), o)
+                 for e0, e, o in zip((a, b), even, odd))
+
+
+def _scan_chunk(h, dt, A, Bm, Cm, x):
+    """One chunk of :func:`ssm_scan_chunked` from state ``h`` (B,D,N): the
+    JAX package's ``_mamba1_ssm_inputs`` decay and input for the chunk,
+    its ``chunk_body`` scan, and C contracted at once.  Returns y (B,c,D)
+    and the chunk's last state, f32."""
+    dt, A, Bm, Cm, x = (t.float() for t in (dt, A, Bm, Cm, x))
+    a = torch.exp(dt[..., None] * A)                          # (B,c,D,N)
+    b = (dt * x)[..., None] * Bm[:, :, None, :]
+    pa, pb = associative_scan(a, b)
+    h_all = pb + pa * h[:, None]
+    return torch.einsum("bscn,bsn->bsc", h_all, Cm), h_all[:, -1]
+
+
+def ssm_scan_chunked(dt, A, Bm, Cm, x, *, chunk: int = SCAN_CHUNK):
+    """y (B,S,D) f32: the function of :func:`ssm_scan` as the JAX package's
+    Mamba1 training computes it, chunks of ``chunk`` steps one after
+    another (the last may be shorter), each by an associative scan.  Where
+    gradients are recorded each chunk runs under
+    ``torch.utils.checkpoint``: the forward keeps only each chunk's
+    starting state, and the backward rebuilds one chunk's (B, chunk, D, N)
+    tensors at a time."""
+    _check(dt, A, Bm, Cm, x)
+    b, s, d = dt.shape
+    h = torch.zeros((b, d, A.shape[1]), dtype=torch.float32,
+                    device=dt.device)
+    ys = []
+    for t in range(0, s, chunk):
+        args = (h, dt[:, t:t + chunk], A, Bm[:, t:t + chunk],
+                Cm[:, t:t + chunk], x[:, t:t + chunk])
+        if torch.is_grad_enabled():
+            y, h = torch.utils.checkpoint.checkpoint(_scan_chunk, *args,
+                                                     use_reentrant=False)
+        else:
+            y, h = _scan_chunk(*args)
+        ys.append(y)
+    if not ys:
+        return torch.zeros((b, s, d), dtype=torch.float32, device=dt.device)
+    return torch.cat(ys, dim=1)
+
+
+class SSMScan(torch.autograd.Function):
+    """``apply(dt, A, Bm, Cm, x)`` -> y (B,S,D) f32: forward through
+    :func:`ssm_scan` (the kernel on the card, the sequential plain version
+    on the CPU); backward through autograd of :func:`ssm_scan_chunked`
+    recomputed from the saved inputs, so the gradients are bit for bit
+    those of ``ssm_scan_chunked``."""
+
+    @staticmethod
+    def forward(ctx, dt, A, Bm, Cm, x):
+        ctx.save_for_backward(dt, A, Bm, Cm, x)
+        return ssm_scan(dt, A, Bm, Cm, x)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            y = ssm_scan_chunked(*ins)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, grad_y))
+        return tuple(next(grads) if n else None for n in need)

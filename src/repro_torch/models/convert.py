@@ -10,9 +10,12 @@ expert layer (the last of each superblock) under ``blocks["moe"]`` with
 MLPs under ``blocks["mlp_dense"]`` with ``(n_super, period - 1)``.  Layer
 i is superblock ``i // period``, slot ``i % period``.  The JAX SSM LM
 stacks its Mamba1 layers under ``layers`` on a leading ``(n_layers,)``
-axis (``src/repro/models/ssm_lm.py::init``).  The port keeps every
-layer's tensors apart, under ``nn.Module`` names (``layers.3.attn.wq``,
-``layers.3.moe.shared.wg``), so conversion unstacks those axes
+axis (``src/repro/models/ssm_lm.py::init``), and the encoder-decoder its
+two stacks under ``encoder`` and ``decoder`` the same way
+(``src/repro/models/encdec.py::init``).  The port keeps every layer's
+tensors apart, under ``nn.Module`` names (``layers.3.attn.wq``,
+``layers.3.moe.shared.wg``, ``decoder.3.cross.wk``), so conversion
+unstacks those axes
 (``params_from_jax``) or stacks them back (``jax_tree``,
 ``params_to_jax``).  Checkpoints are written in the JAX layout, so that
 either package restores the other's.
@@ -25,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.ssm_lm import MambaLM
 from repro_torch.models.transformer import (Transformer, ffn_group,
@@ -36,7 +40,8 @@ from repro_torch.train.checkpoint import host_array, tensor_from_host
 # (``moe.moe_init``)
 F32_LEAVES = {"ssm": ("A_log", "D"), "moe": ("router", "shared_gate")}
 # the stacks of each transformer family, under ``blocks``
-GROUPS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe", "mlp_dense")}
+GROUPS = {"dense": ("attn", "mlp"), "vlm": ("attn", "mlp"),
+          "moe": ("attn", "moe", "mlp_dense")}
 
 
 def _set(tree: dict, path, value):
@@ -54,25 +59,40 @@ def _leaves(tree: dict, prefix=()):
             yield prefix + (k,), v
 
 
-def _layer_path(cfg, rest: tuple) -> tuple:
-    """The JAX key path of a per-layer leaf whose port name ends in
-    ``rest`` (``("attn", "wq")``, ``("moe", "shared", "wg")``; an SSM
-    layer's ``("A_log",)``)."""
-    return ("layers",) + rest if cfg.family == "ssm" else ("blocks",) + rest
+def _stacks(cfg) -> dict:
+    """The port's per-layer stacks (its top-level ``nn.ModuleList`` names)
+    and each one's number of layers."""
+    if cfg.family == "audio":
+        return {"encoder": cfg.n_encoder_layers, "decoder": cfg.n_layers}
+    return {"layers": cfg.n_layers}
 
 
-def _group_layers(cfg, group: str) -> list:
+def _flat(cfg) -> bool:
+    """Whether every leaf of a stack has one leading (n_layers,) axis in the
+    JAX layout (the SSM LM's ``layers``, the encoder-decoder's ``encoder``
+    and ``decoder``), not the transformer's superblocks."""
+    return cfg.family in ("ssm", "audio")
+
+
+def _layer_path(cfg, stack: str, rest: tuple) -> tuple:
+    """The JAX key path of a per-layer leaf of port stack ``stack`` whose
+    port name ends in ``rest`` (``("attn", "wq")``, ``("moe", "shared",
+    "wg")``; an SSM layer's ``("A_log",)``)."""
+    return (stack,) + rest if _flat(cfg) else ("blocks",) + rest
+
+
+def _group_layers(cfg, stack: str, group: str) -> list:
     """The layers whose tensors the stack ``group`` holds, in stack order
-    (``group``: a transformer stack; for the SSM family, any leaf)."""
-    if cfg.family == "ssm" or group == "attn":
-        return list(range(cfg.n_layers))
+    (``group``: a transformer stack; for a flat stack, any leaf)."""
+    if _flat(cfg) or group == "attn":
+        return list(range(_stacks(cfg)[stack]))
     return [i for i in range(cfg.n_layers) if ffn_group(cfg, i) == group]
 
 
-def _stack_shape(cfg, group: str) -> tuple:
+def _stack_shape(cfg, stack: str, group: str) -> tuple:
     """The leading axes of the stack ``group`` in the JAX layout."""
-    if cfg.family == "ssm":
-        return (cfg.n_layers,)
+    if _flat(cfg):
+        return (_stacks(cfg)[stack],)
     period = cfg.moe_layer_period
     n_super = cfg.n_layers // period
     return {"attn": (n_super, period), "mlp_dense": (n_super, period - 1)
@@ -81,7 +101,7 @@ def _stack_shape(cfg, group: str) -> tuple:
 
 def _jax_index(cfg, group: str, i: int) -> tuple:
     """Layer i's index into the leading axes of the stack ``group``."""
-    if cfg.family == "ssm":
+    if _flat(cfg):
         return (i,)
     sb, j = superblock_slot(cfg, i)
     return (sb, j) if group in ("attn", "mlp_dense") else (sb,)
@@ -91,15 +111,16 @@ def jax_ndim(name: str, p: torch.Tensor, cfg) -> int:
     """The number of dims of port tensor ``name``'s leaf in the JAX layout:
     the stacked axes added to a per-layer tensor's own."""
     parts = name.split(".")
-    if parts[0] != "layers":
+    if parts[0] not in _stacks(cfg):
         return p.dim()
-    return p.dim() + len(_stack_shape(cfg, parts[2]))
+    return p.dim() + len(_stack_shape(cfg, parts[0], parts[2]))
 
 
 def decayed_names(named: dict, cfg) -> set:
     """The names AdamW decays: those whose JAX leaf has ``ndim >= 2``
     (``src/repro/train/optimizer.py::_is_matrix``).  Every per-layer tensor
-    is one, norms included; ``final_norm`` is not."""
+    is one, norms included; ``final_norm`` (and the encoder-decoder's
+    ``enc_norm``) is not."""
     return {k for k, p in named.items() if jax_ndim(k, p, cfg) >= 2}
 
 
@@ -108,21 +129,23 @@ def jax_tree(named: dict, cfg) -> dict:
     moments under the same names) as a nested dict in the JAX layout,
     per-layer tensors stacked into new tensors on their device."""
     out, per_layer = {}, {}
+    stacks = _stacks(cfg)
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in stacks:
+            per_layer.setdefault((parts[0],) + tuple(parts[2:]), {})[
+                int(parts[1])] = t
         else:
             _set(out, parts, t)
-    for rest, by_layer in per_layer.items():
-        want = _group_layers(cfg, rest[0])
+    for (stack, *rest), by_layer in per_layer.items():
+        want = _group_layers(cfg, stack, rest[0])
         if sorted(by_layer) != want:
-            raise ValueError(f"{'.'.join(rest)}: layers {sorted(by_layer)} "
-                             f"for {want}")
+            raise ValueError(f"{stack}.{'.'.join(rest)}: layers "
+                             f"{sorted(by_layer)} for {want}")
         stacked = torch.stack([by_layer[i] for i in want])
-        stacked = stacked.reshape(_stack_shape(cfg, rest[0])
+        stacked = stacked.reshape(_stack_shape(cfg, stack, rest[0])
                                   + stacked.shape[1:])
-        _set(out, _layer_path(cfg, rest), stacked)
+        _set(out, _layer_path(cfg, stack, tuple(rest)), stacked)
     return out
 
 
@@ -130,27 +153,33 @@ def named_from_jax(tree: dict, cfg) -> dict:
     """Inverse of :func:`jax_tree`: port name -> that layer's slice of the
     JAX leaf (numpy arrays or tensors, as given)."""
     named = {f"embed.{k}": a for k, a in tree["embed"].items()}
-    named["final_norm"] = tree["final_norm"]
-    if cfg.family == "ssm":
-        stacks = [((), tree["layers"])]         # the leaf names follow
+    stacks = _stacks(cfg)
+    if _flat(cfg):
+        # (port stack, key path prefix, JAX stack): the leaf names follow
+        parts = [(s, (), tree[s]) for s in stacks]
     else:
         blocks = tree["blocks"]
-        want = {g for g in GROUPS.get(cfg.family, ()) if _group_layers(cfg, g)}
+        want = {g for g in GROUPS.get(cfg.family, ())
+                if _group_layers(cfg, "layers", g)}
         if set(blocks) != want:
             raise NotImplementedError(
                 f"blocks {sorted(blocks)}: a {cfg.family!r} stack of "
                 f"{cfg.n_layers} layers in superblocks of "
                 f"{cfg.moe_layer_period} converts from {sorted(want)}")
-        stacks = [((g,), stack) for g, stack in blocks.items()]
-    for prefix, stack in stacks:
-        for path, a in _leaves(stack, prefix):
-            lead = _stack_shape(cfg, path[0])
+        parts = [("layers", (g,), blk) for g, blk in blocks.items()]
+    jax_stacks = ("blocks",) if not _flat(cfg) else tuple(stacks)
+    for k, a in tree.items():
+        if k != "embed" and k not in jax_stacks:
+            named[k] = a                        # final_norm, enc_norm
+    for stack, prefix, leaves in parts:
+        for path, a in _leaves(leaves, prefix):
+            lead = _stack_shape(cfg, stack, path[0])
             if tuple(np.shape(a)[:len(lead)]) != lead:
                 raise ValueError(f"{'/'.join(path)}: leading axes "
                                  f"{tuple(np.shape(a)[:len(lead)])}, not "
                                  f"{lead}")
-            for i in _group_layers(cfg, path[0]):
-                named[".".join(("layers", str(i)) + path)] = \
+            for i in _group_layers(cfg, stack, path[0]):
+                named[".".join((stack, str(i)) + path)] = \
                     a[_jax_index(cfg, path[0], i)]
     return named
 
@@ -187,9 +216,14 @@ def params_from_jax(tree: dict, cfg, device=None, dtype=None):
         return _unflatten({k[len(prefix):]: v for k, v in named.items()
                            if k.startswith(prefix)})
 
+    def stack(name):
+        return [layer(f"{name}.{i}.") for i in range(_stacks(cfg)[name])]
+
     if cfg.family == "ssm":
-        return MambaLM(cfg, embed, named["final_norm"],
-                       [layer(f"layers.{i}.") for i in range(cfg.n_layers)])
+        return MambaLM(cfg, embed, named["final_norm"], stack("layers"))
+    if cfg.family == "audio":
+        return EncDec(cfg, embed, named["enc_norm"], named["final_norm"],
+                      stack("encoder"), stack("decoder"))
     return Transformer(cfg, embed, named["final_norm"],
                        [(layer(f"layers.{i}.attn."),
                          layer(f"layers.{i}.{ffn_group(cfg, i)}."))

@@ -8,10 +8,13 @@ cast to the model dtype.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -29,6 +32,30 @@ def frozen(groups: dict) -> nn.ParameterDict:
         k: frozen(v) if isinstance(v, dict)
         else nn.Parameter(v, requires_grad=False)
         for k, v in groups.items()})
+
+
+def meta_groups(groups) -> dict:
+    """A parameter group's tensors as ``meta`` tensors of the same shapes
+    and dtypes (nested groups as nested dicts): what a model's
+    ``meta_twin`` is built from."""
+    return {k: meta_groups(v) if isinstance(v, nn.ParameterDict)
+            else torch.empty_like(v, device="meta")
+            for k, v in groups.items()}
+
+
+def layer_stack(fn, layers, x, cfg, *args):
+    """``x = fn(layer, x, cfg, *args)`` over ``layers``.  Where ``cfg.remat``
+    asks and gradients are recorded, each layer runs under
+    ``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of its
+    scan body: it changes memory, not numbers."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in layers:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(fn, layer, x, cfg, *args,
+                                                  use_reentrant=False)
+        else:
+            x = fn(layer, x, cfg, *args)
+    return x
 
 
 def truncated_normal_init(gen: torch.Generator, shape, scale: float,
@@ -79,6 +106,26 @@ def apply_rope(x, sin, cos):
     s = sin[..., None, :]                  # broadcast over the heads axis
     c = cos[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, device=None):
+    """Classic transformer sin/cos absolute position table (no params),
+    (n_pos, d_model) f32: computed in numpy float64 and stored in f32 as
+    the JAX package's, so both tables hold the same bits.  Callers cast it
+    to the model dtype.  One table per (n_pos, d_model, device) is kept and
+    shared (decode reads it every step): read it, never write into it."""
+    return _sinusoid_table(n_pos, d_model, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(n_pos: int, d_model: int, device: torch.device):
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    angle = pos / np.power(10000.0, dim / d_model)
+    table = np.zeros((n_pos, d_model), np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(table).to(device)
 
 
 # ----------------------------------------------------------------------------

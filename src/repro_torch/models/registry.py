@@ -4,8 +4,10 @@ Every family exposes ``init(gen, cfg[, trainable])`` / ``forward`` /
 ``loss_fn`` / ``prefill`` / ``decode_step`` / ``cache_init`` with dict
 batches, as in the JAX package, so the trainer and the serving engines
 treat every arch alike.  The port has the dense and MoE families (the
-transformer) and the SSM family (Mamba1); the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+transformer), the VLM family (the transformer with stub patch embeddings
+before the tokens), the SSM family (Mamba1) and the audio family (the
+encoder-decoder); the hybrid family raises ``NotImplementedError`` naming
+the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.models import ssm_lm, transformer
+from repro_torch.models import encdec, ssm_lm, transformer, vlm
 
 
 class ModelApi(NamedTuple):
@@ -26,14 +28,13 @@ class ModelApi(NamedTuple):
     cache_init: Callable
 
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm_lm}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": vlm,
+             "ssm": ssm_lm, "audio": encdec}
 
 # where each family not ported yet stands in ROADMAP.md ("Modules still to
 # port")
 _NOT_PORTED = {
     "hybrid": "item 8 (hybrid: models/hybrid.py)",
-    "vlm": "item 8 (VLM: models/vlm.py)",
-    "audio": "item 8 (audio: models/encdec.py)",
 }
 
 
@@ -53,13 +54,26 @@ def get_model(cfg) -> ModelApi:
 # batch builders (the JAX package's, with torch dtypes)
 # ----------------------------------------------------------------------------
 def train_batch_shapes(cfg, batch: int, seq: int) -> dict[str, Any]:
-    shapes = {"tokens": ((batch, seq), torch.int32),
-              "labels": ((batch, seq), torch.int32)}
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP modules {_NOT_PORTED[cfg.family]})")
-    return shapes
+    return {"tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32), **modal_shapes(cfg, batch)}
+
+
+def prefill_batch_shapes(cfg, batch: int, seq: int) -> dict[str, Any]:
+    return {"tokens": ((batch, seq), torch.int32),
+            **modal_shapes(cfg, batch)}
+
+
+def modal_shapes(cfg, batch: int) -> dict[str, Any]:
+    """The stub frontends' inputs, bf16 whatever the model dtype, as the
+    JAX package's batch builders give them: a VLM's patch embeddings and
+    an audio model's frame embeddings."""
+    if cfg.family == "vlm":
+        return {"prefix_embeds": ((batch, cfg.n_patches, cfg.d_model),
+                                  torch.bfloat16)}
+    if cfg.family == "audio":
+        return {"frames": ((batch, cfg.n_encoder_frames, cfg.d_model),
+                           torch.bfloat16)}
+    return {}
 
 
 def make_concrete_batch(shapes, rng: np.random.Generator, vocab: int,

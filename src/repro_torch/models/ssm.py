@@ -1,24 +1,27 @@
 """State-space blocks: Mamba1 (falcon-mamba).  Mamba2 comes with the hybrid
 family (ROADMAP modules item 8).
 
-Train/prefill path: the selective scan goes straight to the ``ssm_scan``
-wrapper (the CUDA kernel on the card, its plain version on the CPU), which
-never builds the (B, S, d_inner, N) decay and input tensors that the JAX
-package's chunked associative scan builds.  Its final state comes out of
-the same call, for a prefill to hand to decode.  Decode path: O(1)
-recurrent step with (conv_state, h) carried in the cache.
+Prefill and serving (no gradient recorded): the selective scan goes
+straight to the ``ssm_scan`` wrapper (the CUDA kernel on the card, its
+plain version on the CPU), which never builds the (B, S, d_inner, N) decay
+and input tensors that the JAX package's chunked associative scan builds.
+Its final state comes out of the same call, for a prefill to hand to
+decode.  Training (gradients recorded): the scan goes through
+``SSMScan``, the same forward, with the backward of the JAX package's
+chunked scan (``ssm_scan_chunked``).  Decode path: O(1) recurrent step
+with (conv_state, h) carried in the cache.
 
 The config knobs that change only how the JAX package computes the same
 function (``fused_ssm_y``, ``unroll_scans``, ``ssm_chunk``) are ignored
-here.  ``ssm_scan_dtype`` other than float32 changes the numbers and is not
-ported yet.
+here: the chunk length is ``ops.SCAN_CHUNK``.  ``ssm_scan_dtype`` other
+than float32 changes the numbers and is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ops import SSMScan, ssm_scan
 from repro_torch.models.layers import dense_init
 
 
@@ -88,14 +91,17 @@ def _mamba1_ssm_inputs(p, x_conv, cfg):
 def mamba1_apply(p, x, cfg, *, return_state: bool = False):
     """x (B,S,d) -> (B,S,d).  With ``return_state`` also the state after the
     last token, dict(conv (B,K-1,di), h (B,di,N) f32), as a prefill
-    hands it to decode."""
+    hands it to decode (no gradient flows through that call's scan)."""
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
     x_in, z = xz.chunk(2, dim=-1)
     x_conv = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
     dt, A, Bm, Cm = _mamba1_ssm_inputs(p, x_conv, cfg)
-    y = ssm_scan(dt, A, Bm, Cm, x_conv, return_state=return_state)
     if return_state:
-        y, h = y
+        y, h = ssm_scan(dt, A, Bm, Cm, x_conv, return_state=True)
+    elif torch.is_grad_enabled():
+        y = SSMScan.apply(dt, A, Bm, Cm, x_conv)
+    else:
+        y = ssm_scan(dt, A, Bm, Cm, x_conv)
     y = y + p["D"] * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
     out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])

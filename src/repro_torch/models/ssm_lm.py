@@ -4,7 +4,9 @@ The model is an ``nn.Module`` whose parameter groups are
 ``nn.ParameterDict``s under the JAX package's names and layouts (each
 layer: ``ln`` and the Mamba1 weights of ``ssm.mamba1_init``), frozen like
 ``transformer.Transformer``.  Layers are an ``nn.ModuleList`` walked in a
-Python loop, not a stacked scan.
+Python loop, not a stacked scan; ``cfg.remat`` wraps each layer of a
+forward that records gradients in ``torch.utils.checkpoint``, as the
+transformer does (the recomputed forward runs the scan again).
 
 The cache keeps the JAX layout: ``conv`` (n_layers, B, K-1, d_inner) in the
 cache dtype and ``h`` (n_layers, B, d_inner, N) in f32, so the serving
@@ -21,8 +23,8 @@ from torch import nn
 from repro_torch.models import ssm
 from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
-                                       embed_init, frozen, logits_apply,
-                                       rms_norm, torch_dtype)
+                                       embed_init, frozen, layer_stack,
+                                       logits_apply, rms_norm, torch_dtype)
 
 
 class MambaLM(nn.Module):
@@ -60,8 +62,7 @@ def _check_family(cfg):
 def init(gen, cfg, trainable: bool = False) -> MambaLM:
     """Random parameters on ``gen.device``, drawn one tensor at a time in
     f32 and cast to ``cfg.dtype`` (``A_log`` and ``D`` stay f32);
-    ``trainable`` turns their gradients on (training through the CUDA scan
-    raises: ``kernels/ssm_scan/ops.py``)."""
+    ``trainable`` turns their gradients on."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
 
@@ -75,12 +76,15 @@ def init(gen, cfg, trainable: bool = False) -> MambaLM:
     return MambaLM(cfg, embed, ones(), layers).requires_grad_(trainable)
 
 
+def _layer(lp, x, cfg):
+    return x + ssm.mamba1_apply(lp, rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+
+
 def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
     """batch: tokens (B,S).  Returns logits (B, S, V).  ``mode`` is the
     uniform API's and unused: the family has no attention."""
     x = embed_apply(params.embed, batch["tokens"])
-    for lp in params.layers:
-        x = x + ssm.mamba1_apply(lp, rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+    x = layer_stack(_layer, params.layers, x, cfg)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return logits_apply(params.embed, x, cfg.tie_embeddings)
 

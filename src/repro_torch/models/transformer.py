@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM, the dense and MoE families.
+"""Decoder-only transformer LM, the dense and MoE families, and the VLM
+family's backbone (``models/vlm.py``: a batch's ``prefix_embeds``, the stub
+patch embeddings, go before its tokens).
 
 The model is an ``nn.Module`` whose parameter groups are
 ``nn.ParameterDict``s under the JAX package's names and layouts (``wq``
@@ -27,16 +29,15 @@ new token's keys and values into that cache in place and returns it.
 from __future__ import annotations
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
-                                       embed_init, frozen, logits_apply,
-                                       mlp_apply, mlp_init, rms_norm,
-                                       torch_dtype)
+                                       embed_init, frozen, layer_stack,
+                                       logits_apply, meta_groups, mlp_apply,
+                                       mlp_init, rms_norm, torch_dtype)
 
 
 def ffn_group(cfg, i: int) -> str:
@@ -67,12 +68,6 @@ class Layer(nn.Module):
         return getattr(self, self.group)
 
 
-def _meta(groups) -> dict:
-    return {k: _meta(v) if isinstance(v, nn.ParameterDict)
-            else torch.empty_like(v, device="meta")
-            for k, v in groups.items()}
-
-
 class Transformer(nn.Module):
     def __init__(self, cfg, embed: dict, final_norm: torch.Tensor,
                  layers: list):
@@ -90,17 +85,17 @@ class Transformer(nn.Module):
     def meta_twin(self) -> "Transformer":
         """The same structure on the ``meta`` device (shapes and dtypes
         only): what ``cache_batch_axes`` probes."""
-        return Transformer(self.cfg, _meta(self.embed),
+        return Transformer(self.cfg, meta_groups(self.embed),
                            torch.empty_like(self.final_norm, device="meta"),
-                           [(_meta(layer.attn), _meta(layer.ffn))
+                           [(meta_groups(layer.attn), meta_groups(layer.ffn))
                             for layer in self.layers])
 
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the port's transformer runs the dense and MoE "
-            f"families; {cfg.family!r} is ROADMAP modules item 8")
+            f"{cfg.name}: the port's transformer runs the dense, MoE and "
+            f"VLM families; {cfg.family!r} is ROADMAP modules item 8")
     if (cfg.family == "moe") != bool(cfg.n_experts):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
                          f"{cfg.n_experts} experts")
@@ -161,34 +156,38 @@ def _ffn_sub(layer, x, cfg):
     return x + mlp_apply(p, h)
 
 
-def _embed_input(params, tokens):
-    x = embed_apply(params.embed, tokens)
+def _embed_input(params, batch):
+    """The token embeddings after the batch's ``prefix_embeds`` (B,P,d), if
+    it has them, cast to the model dtype; positions count from the
+    prefix's first row."""
+    x = embed_apply(params.embed, batch["tokens"])
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     return x, positions
 
 
-def _layer(layer, x, positions, cfg, mode):
+def _layer(layer, x, cfg, positions, mode):
     x, _ = _attn_sub(layer.attn, x, positions, cfg, mode)
     return _ffn_sub(layer, x, cfg)
 
 
 def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
-    """batch: tokens (B,S).  Returns logits (B, S, V)."""
-    x, positions = _embed_input(params, batch["tokens"])
-    remat = cfg.remat and torch.is_grad_enabled()
-    for layer in params.layers:
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _layer, layer, x, positions, cfg, mode, use_reentrant=False)
-        else:
-            x = _layer(layer, x, positions, cfg, mode)
+    """batch: tokens (B,S) [+ prefix_embeds (B,P,d)].  Returns logits
+    (B, P + S, V)."""
+    x, positions = _embed_input(params, batch)
+    x = layer_stack(_layer, params.layers, x, cfg, positions, mode)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return logits_apply(params.embed, x, cfg.tie_embeddings)
 
 
 def loss_fn(params, cfg, batch, mode: AttnMode = AttnMode()):
     logits = forward(params, cfg, batch, mode)
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     return cross_entropy_loss(logits[:, :-1], labels[:, 1:],
@@ -208,8 +207,9 @@ def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None):
 
 
 def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
-    """Full forward over the prompt; returns (cache, last-token logits)."""
-    x, positions = _embed_input(params, batch["tokens"])
+    """Full forward over the prompt (after its ``prefix_embeds``, if any);
+    returns (cache, last-token logits)."""
+    x, positions = _embed_input(params, batch)
     cache = cache_init(cfg, x.shape[0], smax, device=x.device)
     s = x.shape[1]
     for i, layer in enumerate(params.layers):

@@ -9,15 +9,19 @@
    pool by a logical rank when the queue backs up.
 
 The model's weights are random, drawn from a seeded ``torch.Generator`` on
-the device.  On the card every prefill of the dense and MoE families goes
-through the ``flash_attention`` kernel, every prefill of the SSM family
-(falcon-mamba) through ``ssm_scan``, and every ETL shuffle through
-``radix_partition``.
+the device; a VLM's patch embeddings and an audio model's frame embeddings
+are the stub frontends' zeros.  On the card every prefill of the dense,
+MoE and VLM families goes through the ``flash_attention`` kernel (the
+audio family's: its encoder's, decoder's and cross-attention's), every
+prefill of the SSM family (falcon-mamba) through ``ssm_scan``, and every
+ETL shuffle through ``radix_partition``.
 
     python -m repro_torch.serve_lm                 # 4 ranks on cuda:0
     python -m repro_torch.serve_lm --device cpu
     python -m repro_torch.serve_lm --device cpu --arch falcon-mamba-7b
     python -m repro_torch.serve_lm --device cpu --arch qwen2-moe-a2.7b
+    python -m repro_torch.serve_lm --device cpu --arch internvl2-1b
+    python -m repro_torch.serve_lm --device cpu --arch whisper-medium
 """
 from __future__ import annotations
 
@@ -139,8 +143,8 @@ def act_continuous(cfg, params, requests, devices, *, max_batch: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-3-8b",
-                    help="an arch of a ported family (dense, moe or ssm), "
-                         "at reduced widths")
+                    help="an arch of a ported family (dense, moe, vlm, "
+                         "ssm or audio), at reduced widths")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--device", default=None,
                     help="device of the ranks (default: cuda:0)")

@@ -7,8 +7,14 @@ Presets:
   --preset ci    ~3M param model, 60 steps   (default)
   --preset full  ~100M param qwen3-style model, 300 steps
 
+The ci preset takes another family's arch at the same widths (``--arch``:
+a VLM's batches carry patch embeddings, an audio model's frame
+embeddings, both drawn from the corpus's seed as the stub frontends' input;
+falcon-mamba-7b trains through the ``ssm_scan`` kernel on the card).
+
     python -m repro_torch.train_lm [--preset full]      # on the card
     python -m repro_torch.train_lm --device cpu --synthetic --steps 20
+    python -m repro_torch.train_lm --arch whisper-medium --synthetic
 
 Resume after interruption: re-run with the same ``--ckpt`` directory.  The
 checkpoints are in the JAX package's layout: ``examples/train_lm.py``
@@ -31,16 +37,23 @@ from repro_torch.configs import ParallelConfig, get_config, reduced
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import build_communicator, logical_devices
 from repro_torch.core.communicator import resolve_device
+from repro_torch.models import make_concrete_batch
+from repro_torch.models.registry import modal_shapes
 from repro_torch.train.data import (SyntheticCorpus, etl_token_batches,
                                     make_events)
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import Trainer
 
 ETL_RANKS = 4               # logical ranks of the ETL stage on the device
+ARCH = "qwen3-8b"
 
 
-def model_for(preset: str) -> tuple[ModelConfig, ShapeConfig, int]:
+def model_for(preset: str, arch: str = ARCH
+              ) -> tuple[ModelConfig, ShapeConfig, int]:
     if preset == "full":
+        if arch != ARCH:
+            raise ValueError(f"the full preset is qwen3-100m; {arch} takes "
+                             f"the ci preset")
         # ~100M-param qwen3-family config (assigned arch, scaled depth/width)
         cfg = dataclasses.replace(
             get_config("qwen3-8b"), name="qwen3-100m", n_layers=12,
@@ -50,9 +63,20 @@ def model_for(preset: str) -> tuple[ModelConfig, ShapeConfig, int]:
     if preset != "ci":
         raise ValueError(f"preset {preset!r}: ci or full")
     cfg = dataclasses.replace(
-        reduced(get_config("qwen3-8b")), n_layers=4, d_model=128, d_ff=256,
+        reduced(get_config(arch)), n_layers=4, d_model=128, d_ff=256,
         vocab_size=2048)
     return cfg, ShapeConfig("t", "train", 128, 8), 60
+
+
+def with_modal_inputs(cfg, batches, seed: int = 0):
+    """``batches`` (token batches) each with the stub frontend's input the
+    family takes (``registry.modal_shapes``: a VLM's patch embeddings, an
+    audio model's frames), drawn with numpy from ``seed``; the text
+    families' batches pass as they are."""
+    rng = np.random.default_rng(seed)
+    for b in batches:
+        shapes = modal_shapes(cfg, len(b["tokens"]))
+        yield {**b, **make_concrete_batch(shapes, rng, cfg.vocab_size)}
 
 
 def optimizer_for(steps: int) -> OptimizerConfig:
@@ -114,6 +138,8 @@ def train_task(comm, preset: str = "ci", steps: int | None = None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="ci", choices=["ci", "full"])
+    ap.add_argument("--arch", default=ARCH,
+                    help="the ci preset's arch (any ported family)")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_train_lm"))
     ap.add_argument("--steps", type=int, default=None)
@@ -124,7 +150,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg, shape, steps = model_for(args.preset)
+    cfg, shape, steps = model_for(args.preset, args.arch)
     steps = args.steps or steps
     print(f"model {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
           f"{steps} steps of batch {shape.global_batch} x seq {shape.seq_len}"
@@ -139,6 +165,8 @@ def main(argv=None):
         batches, made = etl_batches(cfg, shape, steps, comm)
         print(f"[etl] produced {made} batches via join+sort pipeline on "
               f"{comm.size} ranks")
+
+    batches = with_modal_inputs(cfg, batches)
 
     # ---- stage 2: training with checkpoint/restart ------------------------
     trainer = Trainer(cfg, ParallelConfig(), shape, optimizer_for(steps),

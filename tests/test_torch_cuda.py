@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, the dataframe path on logical ranks of ``cuda:0``, and the serving
-engines' tokens against the port's oracle (dense, MoE and SSM families).
+version, the dataframe path on logical ranks of ``cuda:0``, the serving
+engines' tokens against the port's oracle (dense, MoE, SSM, VLM and audio
+families), and training on the card (the kernels' autograd Functions).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  This file imports neither JAX nor the JAX package, so it runs on a
@@ -775,13 +776,137 @@ def test_attend_keeps_cuda_attention_inside_autograd(cuda):
                                    atol=1e-5 * float(g.abs().max()) + 1e-7)
 
 
-def test_ssm_scan_refuses_a_gradient_on_the_card(cuda):
-    dt, A, Bm, Cm, x = _ssm_inputs(cuda, 1, 8, 64, 16, "f32")
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 13"):
-        ssm_ops.ssm_scan(dt, A, Bm, Cm, x)
-    with torch.no_grad():
-        ssm_ops.ssm_scan(dt, A, Bm, Cm, x)
+@pytest.mark.parametrize("b,s,d,n,mix", [
+    (1, 300, 100, 16, "f32"), (2, 77, 40, 5, "model"),
+    (1, 2048, 8192, 16, "model"),      # falcon-mamba-7b's layer, train_ssm
+])
+def test_ssm_scan_function_grads_are_chunked_autograd_bit_for_bit(
+        cuda, b, s, d, n, mix):
+    """SSMScan launches the kernel forward once, and its gradients (each in
+    its input's dtype) are those of autograd through ssm_scan_chunked, bit
+    for bit."""
+    dt, A, Bm, Cm, x = (t.detach().requires_grad_() for t in _ssm_inputs(
+        cuda, b, s, d, n, mix))
+    g = torch.randn((b, s, d), generator=torch.Generator(
+        device=cuda).manual_seed(s), device=cuda)
+    before = ssm_ops.ssm_scan.launches
+    y = ssm_ops.SSMScan.apply(dt, A, Bm, Cm, x)
+    assert y.grad_fn is not None
+    assert ssm_ops.ssm_scan.launches == before + 1
+    got = torch.autograd.grad(y, (dt, A, Bm, Cm, x), g)
+    want = torch.autograd.grad(ssm_ops.ssm_scan_chunked(dt, A, Bm, Cm, x),
+                               (dt, A, Bm, Cm, x), g)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    assert all(u.dtype == t.dtype and torch.equal(u, w)
+               for u, w, t in zip(got, want, (dt, A, Bm, Cm, x)))
+
+
+# the attention shapes the VLM and audio families give the kernel: GQA
+# group 7 (internvl2-1b, 14/2 heads, its 256 patches before the tokens),
+# whisper's encoder over 1500 frames (non-causal, 1500 is no whole number
+# of 128-row tiles) and its cross-attention (non-causal, Sq != Sk)
+NEW_FAMILY_ATTN = [
+    (1, 256 + 512, 256 + 512, 14, 2, True),
+    (2, 1500, 1500, 16, 16, False),
+    (1, 100, 1500, 16, 16, False),
+    (2, 4, 1500, 16, 16, False),
+    (1, 448, 448, 16, 16, True),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal", NEW_FAMILY_ATTN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_vlm_and_audio_shapes(cuda, b, sq, sk, h, kh,
+                                                     causal, dtype):
+    """Forward against the plain version at the standing tolerances, and
+    through FlashAttention the gradients of autograd through the plain
+    path, bit for bit."""
+    import functools
+    from repro_torch.models.attention import AttnMode, attend_plain
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, h, 64), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, kh, 64), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), fa.flash_attention_plain(
+        q, k, v, causal=causal).float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), fa.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=causal),
+            atol=4e-3, rtol=2e-2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    plain = functools.partial(attend_plain, mode=AttnMode(kind="full"))
+    got = torch.autograd.grad(fa.FlashAttention.apply(q, k, v, causal,
+                                                      plain), (q, k, v), g)
+    want = torch.autograd.grad(plain(q, k, v, causal=causal), (q, k, v), g)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-medium"])
+def test_vlm_and_audio_f32_token_check_at_reduced_widths(cuda, arch):
+    """The continuous engine (prefill through the kernel, plain decode)
+    against a full forward through the kernel per token; whisper launches
+    the kernel for its encoder, its self- and its cross-attention."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve_lm import make_requests
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=2)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    reqs = make_requests(cfg, [30, 7, 19], [6, 6, 6])
+    before = fa.flash_attention.launches
+    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=64).run(reqs)
+    per_prefill = cfg.n_layers if arch == "internvl2-1b" else \
+        cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert fa.flash_attention.launches - before == per_prefill * len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "internvl2-1b",
+                                  "whisper-medium"])
+def test_new_families_train_on_the_card_as_on_the_cpu(cuda, arch):
+    """Six steps of train_lm's ci preset at ``arch`` on the card (TF32 off)
+    and on the CPU from the same parameters and batches: losses within
+    1e-4 relative; the card's steps launch each kernel of the family once
+    a layer a forward (the encoder-decoder: its encoder's, self- and
+    cross-attention)."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.train.data import SyntheticCorpus
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.train_lm import model_for, optimizer_for, \
+        with_modal_inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, shape, _ = model_for("ci", arch)
+    host = params_to_jax(get_model(cfg).init(
+        torch.Generator().manual_seed(0), cfg))
+    batches = list(with_modal_inputs(cfg, SyntheticCorpus(
+        cfg.vocab_size, 0).batches(shape.global_batch, shape.seq_len, 6)))
+    kernel = ssm_ops.ssm_scan if cfg.family == "ssm" else fa.flash_attention
+    per_forward = cfg.n_encoder_layers + 2 * cfg.n_layers \
+        if cfg.family == "audio" else cfg.n_layers
+    losses = {}
+    for dev in (cuda, "cpu"):
+        before = kernel.launches
+        tr = Trainer(cfg, ParallelConfig(), shape, optimizer_for(6),
+                     device=dev)
+        _, losses[str(dev)] = tr.fit(batches, 6, tr.state_from_jax(host),
+                                     log_every=0)
+        if dev == cuda:
+            assert kernel.launches - before == 6 * per_forward
+    np.testing.assert_allclose(losses["cuda:0"], losses["cpu"], rtol=1e-4)
+    assert losses["cpu"][-1] < losses["cpu"][0]
 
 
 def test_trainer_steps_and_resumes_on_the_card(cuda, tmp_path):

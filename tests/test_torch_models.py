@@ -335,7 +335,8 @@ def test_init_draws_the_jax_shapes_from_a_generator():
 
 
 @pytest.mark.parametrize("arch", [a for a in list_archs() if get_config(a)
-                                  .family not in ("dense", "ssm", "moe")])
+                                  .family not in ("dense", "ssm", "moe",
+                                                  "vlm", "audio")])
 def test_registry_raises_for_families_not_ported(arch):
     cfg = t_reduced(t_get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):

@@ -8,7 +8,10 @@ admission, mixed budgets and eviction, and ``ServeDriver`` running prefill
 and decode as scheduler tasks beside ETL tasks.  The dense family and the
 SSM family (falcon-mamba-7b) and the MoE family (qwen2-moe-a2.7b, and
 llama4-maverick in two superblocks of a dense and an MoE layer) all run
-the engines.
+the engines, and so do the VLM family (internvl2-1b: stub patch
+embeddings before each prompt, positions offset by n_patches) and the
+audio family (whisper-medium: stub frames, the cross-attention caches
+``xk``/``xv`` in the slot cache).
 """
 import dataclasses
 
@@ -33,6 +36,7 @@ from repro_torch.serve import (AutoscaleConfig, ContinuousEngine, Request,
 DENSE = [a for a in list_archs() if get_config(a).family == "dense"]
 MOE = [a for a in list_archs() if get_config(a).family == "moe"]
 SSM = "falcon-mamba-7b"
+VLM, AUDIO = "internvl2-1b", "whisper-medium"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,7 +91,7 @@ def _check_oracles(jax_side, port_side, reqs, out):
         np.testing.assert_array_equal(out[r.uid], ref)
 
 
-@pytest.mark.parametrize("arch", DENSE + [SSM] + MOE)
+@pytest.mark.parametrize("arch", DENSE + [SSM] + MOE + [VLM, AUDIO])
 def test_batched_generation_matches_oracle(arch):
     jax_side, (cfg, model) = _make(arch)
     eng = ServeEngine(cfg, model, max_batch=4, max_seq=32)
@@ -110,7 +114,8 @@ def test_mixed_lengths_grouped():
     _check_oracles(jax_side, (cfg, model), reqs, out)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", SSM, *MOE])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-8b", SSM, *MOE,
+                                  VLM, AUDIO])
 def test_staggered_admission_matches_oracle(arch):
     """max_batch=2 over 5 mixed-length / mixed-budget requests: requests
     are admitted mid-decode into slots whose neighbour is at a different
@@ -304,6 +309,18 @@ def test_serve_lm_serves_qwen2_moe_on_the_cpu(capsys):
     widths."""
     from repro_torch import serve_lm
     serve_lm.main(["--device", "cpu", "--arch", MOE[0]])
+    text = capsys.readouterr().out
+    assert "[runtime] served 6 requests" in text
+    assert "== oracle" in text and "[continuous] 6 requests" in text
+
+
+@pytest.mark.parametrize("arch", [VLM, AUDIO])
+def test_serve_lm_serves_the_vlm_and_audio_families_on_the_cpu(arch, capsys):
+    """``python -m repro_torch.serve_lm --device cpu --arch internvl2-1b``
+    (and ``whisper-medium``): both acts at reduced widths, each checked
+    against the port's oracle."""
+    from repro_torch import serve_lm
+    serve_lm.main(["--device", "cpu", "--arch", arch])
     text = capsys.readouterr().out
     assert "[runtime] served 6 requests" in text
     assert "== oracle" in text and "[continuous] 6 requests" in text

@@ -46,7 +46,6 @@ from repro_torch.configs import ParallelConfig, ShapeConfig, get_config, reduced
 from repro_torch.core import build_communicator, logical_devices
 from repro_torch.distributed.steps import _attn_mode, make_train_step
 from repro_torch.kernels.flash_attention.ops import FlashAttention
-from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.models import get_model, make_concrete_batch, train_batch_shapes
 from repro_torch.models import attention as TA
 from repro_torch.models.convert import (decayed_names, jax_tree,
@@ -427,16 +426,27 @@ def test_grad_accum_equivalence():
                                atol=1e-4)
 
 
-def test_concrete_batch_matches_jax():
-    jcfg, tcfg = _configs()
+@pytest.mark.parametrize("arch", [ARCH, "internvl2-1b", "whisper-medium"])
+def test_concrete_batch_matches_jax(arch):
+    """One seed draws the same batch in both packages, bit for bit: the
+    int32 tokens and labels, and the VLM's bf16 ``prefix_embeds`` and the
+    audio model's bf16 ``frames`` (the port draws f32 and casts, the JAX
+    package casts from f64; both round to bf16 through f32)."""
+    jcfg, tcfg = _configs(arch)
     jb = jax_make_concrete_batch(jax_train_batch_shapes(jcfg, 3, 16),
                                  np.random.default_rng(5), jcfg.vocab_size)
     tb = make_concrete_batch(train_batch_shapes(tcfg, 3, 16),
                              np.random.default_rng(5), tcfg.vocab_size, CPU)
-    assert set(jb) == set(tb)
+    assert set(jb) == set(tb) == set(train_batch_shapes(tcfg, 3, 16))
     for k in jb:
-        assert tb[k].dtype == torch.int32
-        np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
+        want = np.asarray(jb[k])
+        if k in ("tokens", "labels"):
+            assert tb[k].dtype == torch.int32
+            got = tb[k].numpy()
+        else:
+            assert tb[k].dtype == torch.bfloat16
+            got = tb[k].view(torch.int16).numpy().view(want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -518,26 +528,6 @@ def test_flash_attention_function_backward_is_plain_autograd(mode, s):
         FlashAttention.apply(qd, k.detach(), v.detach(), True, plain), (qd,),
         g)
     assert torch.equal(gq, want[0])
-
-
-def test_ssm_scan_refuses_gradients_it_would_drop():
-    """On the card the scan's output lies outside autograd, so a call that
-    asks for a gradient raises (naming the ROADMAP item) instead of
-    training without one; under no_grad, or with no input asking, it
-    passes."""
-    rng = np.random.default_rng(0)
-    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-            for s in ((1, 4, 8), (8, 4), (1, 4, 4), (1, 4, 4), (1, 4, 8))]
-    ssm_ops.refuse_grad(*args)
-    args[4].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 13"):
-        ssm_ops.refuse_grad(*args)
-    with torch.no_grad():
-        ssm_ops.refuse_grad(*args)
-    # the CPU takes the plain version, whose gradient is autograd's
-    y = ssm_ops.ssm_scan(*args)
-    (gx,) = torch.autograd.grad(y.sum(), (args[4],))
-    assert torch.isfinite(gx).all() and gx.abs().sum() > 0
 
 
 # ---------------------------------------------------------------------------
