@@ -15,9 +15,11 @@ Phases, one JSON line each:
             and 2e-2 in bf16, and a bf16 result also within 4e-3 + 2e-2 *
             |plain| of the plain version run in f32, causal or not as the
             main path calls it (whisper's encoder and cross-attention:
-            non-causal, Sq != Sk); ssm_scan's y and final state within
-            1e-5 + 1e-5 * |plain|, whatever the inputs' dtypes, and a second
-            call bit-identical;
+            non-causal, Sq != Sk; zamba2's shared block at head dim 112);
+            ssm_scan's y and final state within 1e-5 + 1e-5 * |plain|,
+            whatever the inputs' dtypes, and a second call bit-identical
+            (at zamba2's width, N 64, and at its Mamba2 calls: held to the
+            float64 scan instead);
             bitonic_sort's keys and payloads bit-identical), and its time
             beside its bound, the plain version's and one PyTorch call
             computing the same function, where there is one
@@ -86,6 +88,14 @@ Phases, one JSON line each:
             encoder, the decoder's self- and cross-attention)
   serve_audio_f32  its widths with 2 + 2 layers in float32: tokens equal
             the full-forward oracle's
+  serve_hybrid  zamba2-7b whole at its published widths in bf16 (81 Mamba2
+            layers, d_inner 7168 in 112 heads, N 64; the shared attention
+            block, 32 heads of hd 112, applied 9 times; 6.75 B
+            parameters), the same two acts, requests and timings as serve;
+            flash_attention 9 times and ssm_scan 81 times a prefill
+  serve_hybrid_f32  its widths in float32 at the reduced config's
+            structure, two groups of two Mamba2 layers: tokens equal the
+            full-forward oracle's
   sort      bitonic_sort's own path, the row sorts of the JAX package's
             benchmark (4 rows of 2^18 int32 keys in [0, 2^30),
             benchmarks/bench_kernels.py) and of its test sweep, through the
@@ -117,6 +127,12 @@ Phases, one JSON line each:
             their published widths and full depth, bf16, 3 steps: the loss
             falls, step time, peak memory under 80 GB; whisper runs
             FlashAttention's backward for non-causal Sq != Sk
+  train_hybrid  zamba2-7b at its published widths in bf16, 18 of its 81
+            layers (two groups of 9: the shared block's gradient sums two
+            applications), the same 5 steps; then SSMScan's gradients at
+            one Mamba2 layer's call (1, 2048, 7168, 64) and FlashAttention's
+            at (1, 2048, 32, 32, 112) bf16, each bit-equal to autograd of
+            its plain path
   train_cpu_gpu  the ci preset, 10 steps from the same parameters and
             batches on cuda:0 (TF32 off) and on the CPU: losses within 1e-4
             relative
@@ -126,13 +142,13 @@ Phases, one JSON line each:
             after step 12, the retry resumes from step 10 and finishes; the
             session's trace exported by the port's Perfetto export
 
-The main-path phases (dist, pipeline, shuffle, process, the eleven serve
-phases, sort and the eight train phases)
+The main-path phases (dist, pipeline, shuffle, process, the thirteen
+serve phases, sort and the nine train phases)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (the bf16 serve phases and
 serve_llama4: exactly once per layer per prefill, whisper's decoder layers
-twice; the train phases: once per layer per forward, twice under
-remat).  Then
+twice, zamba2's attention once a group; the train phases: once per layer
+per forward, twice under remat).  Then
 come the kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -180,6 +196,13 @@ TRAIN_ETL_STEPS, TRAIN_ETL_SAVED, TRAIN_ETL_EVERY = 60, 40, 20
 TRAIN_RESUME_RTOL = 1e-5        # resumed against uninterrupted losses
 TRAIN_QWEN3_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 VLM_ARCH, AUDIO_ARCH = "internvl2-1b", "whisper-medium"
+HYBRID_ARCH = "zamba2-7b"
+# the hybrid f32 token check: the published widths at the reduced config's
+# structure, two groups of two Mamba2 layers (the shared block twice, each
+# application its own KV slot)
+HYBRID_F32 = {"n_layers": 4, "shared_attn_period": 2}
+TRAIN_HYBRID_LAYERS = 18        # two groups of the published period 9
+LONG_STEP_MS = 3000             # split_step times a longer step once
 # Whisper's own decoding: the 4 start-of-transcript tokens, alone or after
 # a previous-text prompt (at most n_text_ctx // 2 = 224 tokens in all), and
 # a prompt with its new tokens within n_text_ctx = 448 (arXiv:2212.04356;
@@ -442,6 +465,7 @@ def _attention_spec():
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.train_lm import model_for
     vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    zamba = get_config(HYBRID_ARCH)
 
     def inputs(shape, gen):
         b, h, kh, sq, sk, hd, dtype, _ = shape
@@ -571,23 +595,34 @@ def _attention_spec():
             *serve_shapes(audio, AUDIO_PROMPTS),
             *f32_shapes(audio),
             *attention_shapes(audio, 1, AUDIO_TEXT_CTX, bf16),
+            # zamba2-7b's shared block (32 heads, MHA, hd 112 on the hd-128
+            # tiles in bf16): serve_hybrid's prefills, serve_hybrid_f32's
+            # (f32) and train_hybrid's forward (1 x 2048, among the first)
+            *serve_shapes(zamba, SERVE_PROMPTS),
+            *f32_shapes(zamba),
         ))),
         # the dense prefill's shape (the summary line's), then a 2048-token
         # prefill of qwen2-moe and of llama4-maverick, internvl2-1b's
         # train forward (GQA group 7), whisper's encoder and its train
-        # forward's cross-attention (non-causal, all Sq Sk pairs)
+        # forward's cross-attention (non-causal, all Sq Sk pairs), and
+        # zamba2's shared block at 2048 tokens (hd 112)
         "timed": ((1, *qwen3[:2], 2048, 2048, qwen3[2], bf16, True),
                   (1, 16, 16, 2048, 2048, 128, bf16, True),
                   (1, 40, 8, 2048, 2048, 128, bf16, True),
                   *attention_shapes(vlm, 1, TRAIN_SEQ, bf16, vlm.n_patches),
-                  *attention_shapes(audio, 1, AUDIO_TEXT_CTX, bf16)[1:]),
+                  *attention_shapes(audio, 1, AUDIO_TEXT_CTX, bf16)[1:],
+                  *attention_shapes(zamba, 1, 2048, bf16)),
         "sweep": (
             *((b, h, kh, s, s, hd, dtype, True)
               for b, s, h, kh, hd in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64),
                                       (1, 130, 8, 8, 32), (2, 384, 6, 3, 128),
                                       (1, 1, 4, 2, 16), (1, 17, 8, 2, 128),
-                                      (2, 300, 14, 2, 64))
+                                      (2, 300, 14, 2, 64), (1, 130, 4, 4, 112),
+                                      (2, 63, 8, 2, 112))
               for dtype in (f32, bf16)),
+            # hd 112 non-causal, Sq against Sk shorter and longer
+            *((1, 8, 8, sq, sk, 112, dtype, False)
+              for sq, sk in ((37, 300), (300, 37)) for dtype in (f32, bf16)),
             # non-causal, Sq against Sk shorter, equal and longer, on and
             # off the 128-row tiles
             *((b, h, kh, sq, sk, 64, dtype, False)
@@ -611,18 +646,22 @@ def _ssm_spec():
     from repro_torch.kernels.ssm_scan import ops as ssm
     cfg = get_config(SSM_ARCH)
     d_inner, n_state, dt_rank = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    zamba = get_config("zamba2-7b")
+    zamba = get_config(HYBRID_ARCH)
 
     def inputs(shape, gen):
         """``accuracy.inputs``: dt = softplus(normal), A = -exp(0.3 normal),
         or with "long" Mamba's own ranges (each channel's dt around a level
         drawn log-uniform in [0.001, 0.1], A = -(1..N)); Bm, Cm column
         slices of one (B, S, dt_rank + 2N) tensor, as the model's x_db
-        gives them."""
+        gives them.  With "mamba2" the call of zamba2's Mamba2 layer: each
+        head's dt and A repeated over its 64 channels, x, Bm and Cm slices
+        of one (B, S, D + 2N) tensor."""
         b, s, d, n, dtypes = shape[:5]
-        kind = "long" if "long" in shape[5:] else "softplus"
+        kind = next((k for k in ("long", "mamba2") if k in shape[5:]),
+                    "softplus")
         return accuracy.inputs(b, s, d, n, dtypes, kind, gen=gen,
-                               dt_rank=dt_rank)
+                               dt_rank=dt_rank,
+                               head_dim=zamba.ssm_head_dim)
 
     def compare(out, ref, args, yardstick=False, shape=()):
         """Largest absolute difference of y and of the final state, and
@@ -679,11 +718,15 @@ def _ssm_spec():
             ("dt", "x", "Bm", "Cm"),
             (str(t).removeprefix("torch.") for t in dtypes), strict=True)),
             **({"long_memory": True} if "long" in shape[5:] else {}),
+            **({"inputs": "mamba2"} if "mamba2" in shape[5:] else {}),
             **({"held_to": "float64"} if "f64" in shape[5:] else {})}
 
     mixes = (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16))
     timed = (1, 2048, d_inner, n_state, SSM_MODEL_MIX)
     zamba2 = (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX, "f64")
+    # zamba2's Mamba2 call (N 64: the ssm_scan64 build), held to float64
+    z_d, z_n = zamba.d_inner, zamba.ssm_state
+    mamba2 = ("mamba2", "f64")
     return {
         "name": "ssm_scan",
         "route": "cuda",
@@ -704,9 +747,11 @@ def _ssm_spec():
                      f"|exact| for the state",
         "describe": describe,
         # (B, S, D, N, dtypes) of every prefill and forward of the SSM serve
-        # phases and of train_ssm's forward; the first is the timed one.  serve_ssm_f32's oracle runs a
-        # forward at every length from the prompt's to the prompt's plus
-        # F32_NEW - 1, and the engine's prefill at the prompt's.
+        # phases and of train_ssm's forward; the first is the timed one.
+        # serve_ssm_f32's oracle runs a forward at every length from the
+        # prompt's to the prompt's plus F32_NEW - 1, and the engine's
+        # prefill at the prompt's.  Then the same for zamba2's Mamba2 layers
+        # (serve_hybrid, serve_hybrid_f32, train_hybrid's forward).
         "main_shapes": (
             *((1, s, d_inner, n_state, SSM_MODEL_MIX)
               for s in sorted(set(SERVE_PROMPTS), reverse=True)),
@@ -714,11 +759,16 @@ def _ssm_spec():
                 {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
             *((1, s + d, d_inner, n_state, SSM_F32_MIX) for s in F32_PROMPTS
               for d in range(F32_NEW)),
+            *((1, s, z_d, z_n, SSM_MODEL_MIX, *mamba2)
+              for s in sorted(set(SERVE_PROMPTS), reverse=True)),
+            *((2, s, z_d, z_n, SSM_MODEL_MIX, *mamba2) for s in sorted(
+                {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
+            *((1, s + d, z_d, z_n, SSM_F32_MIX, *mamba2) for s in F32_PROMPTS
+              for d in range(F32_NEW)),
         ),
-        # the serving shape, then zamba2-7b's scan (d_inner 7168, N 64, all
-        # f32) for information, on the inputs of its check below: no path
-        # of the port runs it yet
-        "timed": (timed, zamba2),
+        # the serving shape, then zamba2-7b's Mamba2 call at a 2048-token
+        # prefill (d_inner 7168 in 112 heads, N 64), held to float64
+        "timed": (timed, (1, 2048, z_d, z_n, SSM_MODEL_MIX, *mamba2)),
         # the JAX sweep (tests/test_kernels.py), ragged S and D; N that is
         # no multiple of a channel's lanes, S of 1 and of no whole chunk or
         # group, D of no whole CTA, B = 2 at the serving width; N up to 64
@@ -1440,10 +1490,14 @@ def serve_timings(engine, reqs):
 def launches_per_forward(cfg) -> dict:
     """The kernel launches one forward or prefill of ``cfg`` makes:
     flash_attention once a layer (an encoder-decoder: once an encoder
-    layer, twice a decoder layer: its self- and cross-attention), ssm_scan
-    once a Mamba layer."""
+    layer, twice a decoder layer: its self- and cross-attention; the
+    hybrid: once a group, the shared block's application), ssm_scan once a
+    Mamba layer."""
     if cfg.family == "ssm":
         return {"ssm_scan": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.shared_attn_period,
+                "ssm_scan": cfg.n_layers}
     if cfg.family == "audio":
         return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers}
     return {"flash_attention": cfg.n_layers}
@@ -1504,10 +1558,10 @@ def free_device_memory():
 
 
 def phase_serve_f32(arch, **overrides):
-    """``arch``'s widths, 2 layers, float32 (and ``overrides`` of its
-    config): the continuous engine (prefill through the kernels, plain
-    decode) against greedy_reference (a full forward through the kernels
-    per token), token for token."""
+    """``arch``'s widths, 2 layers (unless ``overrides`` of its config say
+    otherwise), float32: the continuous engine (prefill through the
+    kernels, plain decode) against greedy_reference (a full forward
+    through the kernels per token), token for token."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serve import ContinuousEngine, greedy_reference
@@ -1517,8 +1571,8 @@ def phase_serve_f32(arch, **overrides):
     # TF32 would keep about three digits and let near-tied logits flip
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
-                              **overrides)
+    overrides = {"n_layers": 2, **overrides}
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **overrides)
     free_device_memory()
     params = serve_model(cfg)
     reqs = make_requests(cfg, F32_PROMPTS, [F32_NEW] * len(F32_PROMPTS),
@@ -1530,7 +1584,7 @@ def phase_serve_f32(arch, **overrides):
         if not np.array_equal(out[r.uid], ref):
             raise AssertionError(f"f32 request {r.uid}: {out[r.uid]} != "
                                  f"oracle {ref}")
-    return {"arch": arch, "layers": 2, **overrides, "dtype": "float32",
+    return {"arch": arch, **overrides, "dtype": "float32",
             "prompt_lengths": F32_PROMPTS, "max_new_tokens": F32_NEW,
             "tokens_equal_oracle": True, "tf32": False}
 
@@ -1787,10 +1841,15 @@ def _step_ms(stamps: list) -> float:
     return statistics.median(np.diff(stamps[1:])) * 1e3
 
 
-def split_step(tr, state, batch) -> dict:
+def split_step(tr, state, batch, step_ms: float) -> dict:
     """Where a train step's time goes, after the phase's checks (the state
     moves on): the forward and backward alone and the AdamW update alone
-    (CUDA events, median of 3), and one whole step under the profiler."""
+    (CUDA events, median of 3), and one whole step under the profiler.  A
+    step longer than LONG_STEP_MS (zamba2's 18 layers: seconds and 170 000
+    kernels) is timed once and not profiled, to keep the script within its
+    time limit."""
+    long = step_ms > LONG_STEP_MS
+    reps = 1 if long else 3
     from repro_torch.models.convert import decayed_names
     from repro_torch.train.optimizer import adamw_update
     batch = {k: torch.as_tensor(v).to(tr.device) for k, v in batch.items()}
@@ -1802,12 +1861,14 @@ def split_step(tr, state, batch) -> dict:
         return torch.autograd.grad(loss, list(params.values()))
     grads = dict(zip(params, fwd_bwd()))
     decay = decayed_names(params, tr.cfg)
-    return {"fwd_bwd_ms": time_ms(fwd_bwd, reps=3, warmup=1),
-            "optimizer_ms": time_ms(lambda: adamw_update(
-                grads, state.opt_state, params, tr.ocfg, decay), reps=3,
-                warmup=1),
-            "profile_step": profile(lambda: tr.bundle.fn(
-                state.params, state.opt_state, batch))}
+    out = {"fwd_bwd_ms": time_ms(fwd_bwd, reps=reps, warmup=1),
+           "optimizer_ms": time_ms(lambda: adamw_update(
+               grads, state.opt_state, params, tr.ocfg, decay), reps=reps,
+               warmup=1)}
+    if not long:
+        out["profile_step"] = profile(lambda: tr.bundle.fn(
+            state.params, state.opt_state, batch))
+    return out
 
 
 def phase_train_etl(specs, records, gen):
@@ -1883,7 +1944,7 @@ def phase_train_etl(specs, records, gen):
         max(c["max_abs_err"] for c in checks))
     step_ms = _step_ms(stamps["t"])
     out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               **split_step(trainer(), back, batches[0]),
+               **split_step(trainer(), back, batches[0], step_ms),
                param_count=params, etl_s=etl_s, etl_batches=made,
                radix_partition_launches_etl=radix_etl,
                radix_partition_shapes=checks,
@@ -1939,11 +2000,11 @@ def train_published(specs, records, arch, n_layers=None, steps=TRAIN_STEPS,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if peak_gb >= 80:
         raise AssertionError(f"{arch}: a step's peak is {peak_gb} GB")
-    split = split_step(tr, state, batch)
+    step_ms = _step_ms(stamps["t"])
+    split = split_step(tr, state, batch, step_ms)
     mode = tr.bundle.info["mode"]
     del state, tr
     free_device_memory()
-    step_ms = _step_ms(stamps["t"])
     return {"arch": arch, "family": cfg.family, "n_layers": cfg.n_layers,
             "n_encoder_layers": cfg.n_encoder_layers,
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
@@ -1964,13 +2025,20 @@ def phase_train_qwen3(specs, records, gen):
     layers (train_published).  Then the attention Function's gradients held
     bit-equal to autograd through the plain path the train step
     differentiates at that length."""
-    import functools
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import FlashAttention
-    from repro_torch.models.attention import attend_plain
     res, mode = train_published(specs, records, SERVE_ARCH,
                                 TRAIN_QWEN3_LAYERS)
-    cfg, s = get_config(SERVE_ARCH), TRAIN_SEQ
+    return {**res, "grad_check": attention_grad_check(get_config(SERVE_ARCH),
+                                                      mode, gen)}
+
+
+def attention_grad_check(cfg, mode, gen, s=TRAIN_SEQ) -> dict:
+    """The attention Function's q, k and v gradients at ``cfg``'s attention
+    over 1 x ``s`` tokens in bf16, held bit-equal to autograd through the
+    plain path the train step differentiates at that length (``mode``)."""
+    import functools
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    from repro_torch.models.attention import attend_plain
     plain = functools.partial(attend_plain, mode=mode)
     q, k, v = (torch.randn((1, s, h, cfg.head_dim), generator=gen,
                            device="cuda").to(torch.bfloat16).requires_grad_()
@@ -1983,10 +2051,9 @@ def phase_train_qwen3(specs, records, gen):
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("the attention Function's gradients differ from"
                              " autograd of the plain path")
-    return {**res,
-            "grad_check": {"shape": [1, s, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.head_dim], "dtype": "bfloat16",
-                           "backward_path": mode.kind, "bit_equal": True}}
+    return {"shape": [1, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "dtype": "bfloat16", "backward_path": mode.kind,
+            "bit_equal": True}
 
 
 def phase_train_moe(specs, records):
@@ -2009,14 +2076,23 @@ def phase_train_ssm(specs, records, gen):
     bit-equal to autograd of ssm_scan_chunked on the same inputs, and the
     backward's transient device memory above its inputs and output."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssm_scan import ops as ssm
     res, _ = train_published(specs, records, SSM_ARCH, TRAIN_SSM_LAYERS)
     cfg = get_config(SSM_ARCH)
+    return {**res, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+            "grad_check": scan_grad_check(specs, (
+                1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX),
+                gen)}
+
+
+def scan_grad_check(specs, shape, gen) -> dict:
+    """SSMScan's gradients on the ssm_scan spec's inputs at ``shape`` held
+    bit-equal to autograd of ssm_scan_chunked, and the backward's transient
+    device memory above its inputs and output."""
+    from repro_torch.kernels.ssm_scan import ops as ssm
     spec = next(s for s in specs if s["name"] == "ssm_scan")
-    shape = (1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX)
+    b, s, d, n, dtypes = shape[:5]
     args = [t.detach().requires_grad_() for t in spec["inputs"](shape, gen)]
-    g = torch.randn((1, TRAIN_SEQ, cfg.d_inner), generator=gen,
-                    device="cuda")
+    g = torch.randn((b, s, d), generator=gen, device="cuda")
     y = ssm.SSMScan.apply(*args)
     sync()
     base = torch.cuda.memory_allocated()
@@ -2025,17 +2101,35 @@ def phase_train_ssm(specs, records, gen):
     sync()
     transient = torch.cuda.max_memory_allocated() - base
     want = torch.autograd.grad(ssm.ssm_scan_chunked(*args), args, g)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+    if not all(torch.equal(x, w) for x, w in zip(got, want)):
         raise AssertionError("SSMScan's gradients differ from autograd of "
                              "ssm_scan_chunked")
-    chunk_gb = shape[0] * ssm.SCAN_CHUNK * cfg.d_inner * cfg.ssm_state * 4e-9
-    return {**res, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
-            "grad_check": {"shape": list(shape[:4]),
-                           "dtypes": ["float32", "bfloat16", "bfloat16",
-                                      "bfloat16"],
-                           "scan_chunk": ssm.SCAN_CHUNK, "bit_equal": True,
-                           "backward_transient_gb": transient / 1e9,
-                           "one_chunk_tensor_gb": chunk_gb}}
+    return {"shape": [b, s, d, n], "inputs": shape[5:],
+            "dtypes": [str(t).removeprefix("torch.") for t in dtypes],
+            "scan_chunk": ssm.SCAN_CHUNK, "bit_equal": True,
+            "backward_transient_gb": transient / 1e9,
+            "one_chunk_tensor_gb": b * ssm.SCAN_CHUNK * d * n * 4e-9}
+
+
+def phase_train_hybrid(specs, records, gen):
+    """zamba2-7b at its published widths in bf16, TRAIN_HYBRID_LAYERS of
+    its 81 layers: two groups of the published period 9, the least depth
+    at which the shared block's gradient sums two applications
+    (train_published; remat by group: each kernel twice a forward).  Then
+    SSMScan's gradients at one Mamba2 layer's call (each head's dt and A
+    repeated over its 64 channels) and FlashAttention's at the shared
+    block's (1, 2048, 32, 32, 112) in bf16, each bit-equal to autograd of
+    its plain path."""
+    from repro_torch.configs import get_config
+    res, mode = train_published(specs, records, HYBRID_ARCH,
+                                TRAIN_HYBRID_LAYERS)
+    cfg = get_config(HYBRID_ARCH)
+    return {**res, "shared_attn_period": cfg.shared_attn_period,
+            "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+            "scan_grad_check": scan_grad_check(specs, (
+                1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX,
+                "mamba2"), gen),
+            "attention_grad_check": attention_grad_check(cfg, mode, gen)}
 
 
 def phase_train_full_depth(specs, records, arch, seq):
@@ -2222,6 +2316,12 @@ def main() -> int:
         res = phase_serve_f32(AUDIO_ARCH, n_encoder_layers=2)
     emit("serve_audio_f32", launches=mp.counts(), **res)
 
+    res = run_serve(HYBRID_ARCH, specs, records, radix + attention + scan)
+    emit("serve_hybrid", **res)
+    with MainPath(specs, records, attention + scan) as mp:
+        res = phase_serve_f32(HYBRID_ARCH, **HYBRID_F32)
+    emit("serve_hybrid_f32", launches=mp.counts(), **res)
+
     free_device_memory()
     emit("train_etl", **phase_train_etl(specs, records, gen))
     emit("train_qwen3", **phase_train_qwen3(specs, records, gen))
@@ -2231,6 +2331,7 @@ def main() -> int:
                                                TRAIN_SEQ))
     emit("train_audio", **phase_train_full_depth(specs, records, AUDIO_ARCH,
                                                  AUDIO_TEXT_CTX))
+    emit("train_hybrid", **phase_train_hybrid(specs, records, gen))
     emit("train_cpu_gpu", **phase_train_cpu_gpu(specs, records))
     emit("train_task", **phase_train_task(specs, records))
 

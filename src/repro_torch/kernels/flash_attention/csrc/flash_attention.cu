@@ -42,6 +42,12 @@
 //         MN-major (row-major as stored, transposed by the descriptor).
 //         setmaxnreg moves registers from the producer (24) to the
 //         consumers (240), which hold S and acc (64 + hd / 2 f32 each).
+//         Head dim 112 (zamba2's shared attention) runs on the hd-128
+//         tiles: its tensor maps are 112 columns wide, so TMA zero-fills
+//         columns 112-127 of the second 64-column box; Q K^T takes 7 k-steps
+//         of 16 columns, P V still an n128 product whose last 16 columns
+//         are zeros and are not stored: 1/16 of the arithmetic (the last
+//         eighth of P V) is spent on padding.
 //         The earlier design (mma.sync m16n8k16, 64-row tiles loaded
 //         synchronously into one buffer, two scalar shared-memory loads per
 //         product for K, expf) left the tensor cores idle while each tile
@@ -345,7 +351,10 @@ struct WgSmem {
                 "tiles keep the swizzle's 1024-byte alignment");
 };
 
-template <int HD>
+// HD: the tile's head dim (16, 32, 64 or 128); LHD: the tensors' own head
+// dim, at most HD (112 on the hd-128 tiles; columns LHD..HD-1 of every tile
+// are TMA's zero fill).
+template <int HD, int LHD>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -355,6 +364,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              int Sk, int causal, float scale_log2) {
   using L = WgSmem<HD>;
   constexpr int RB = L::RB;
+  static_assert(LHD % 16 == 0 && LHD <= HD, "LHD: whole k-steps of a tile");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -414,12 +424,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = kt % KV_STAGES, k0 = kt * WG_BLOCK_K;
       mbar_wait(full_bar + 8 * s, (kt / KV_STAGES) & 1);
 
-      // S = Q K^T: 16 columns of hd a step; a step moves 32 bytes along a
-      // swizzled row, or to the next column block
+      // S = Q K^T: 16 columns of hd a step (the zero-filled columns past
+      // LHD skipped); a step moves 32 bytes along a swizzled row, or to the
+      // next column block
       float sc[64];
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
+      for (int ks = 0; ks < LHD / 16; ++ks) {
         const int blk = ks * 32 / RB, in_row = ks * 32 % RB;
         const uint64_t dq = gmma_desc(
             sQ + blk * WG_BLOCK_Q * RB + wg * 64 * RB + in_row, 16, 8 * RB,
@@ -520,7 +531,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
     __nv_bfloat16* ob = o + b * o_b + h * o_h;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < LHD / 8; ++j) {  // the columns past LHD are padding
       const int d = j * 8 + t4 * 2;
       if (row0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * o_s + d) =
@@ -726,6 +737,8 @@ static EncodeTiled encoder() {
 
 // A 4-D (hd, S, heads, B) bf16 map of a tensor with element strides
 // st = [batch, seq, head], boxes of rb bytes x `rows` rows, swizzled by rb.
+// `hd` is the tensor's own width: a box reaching past it (hd 112 on the
+// hd-128 tiles) is zero-filled.
 // A dimension of size 1 may carry any stride in PyTorch; TMA wants a
 // multiple of 16 bytes, so it gets the packed one.
 static int make_map(CUtensorMap* map, const void* ptr, int hd, int S,
@@ -760,13 +773,15 @@ static int launch(const void* q, const void* k, const void* v, void* o,
                   int Sk, int causal, float scale, cudaStream_t stream) {
   cudaError_t err;
   if (bf16) {
-    using L = WgSmem<HD>;
+    // the bf16 tiles' head dim: HD, or the next of 64 and 128 above it
+    constexpr int TILE = HD <= 16 ? 16 : HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
+    using L = WgSmem<TILE>;
     CUtensorMap tq, tk, tv;
     int e = make_map(&tq, q, HD, Sq, H, B, st.q, WG_BLOCK_Q, L::RB);
     if (!e) e = make_map(&tk, k, HD, Sk, KH, B, st.k, WG_BLOCK_K, L::RB);
     if (!e) e = make_map(&tv, v, HD, Sk, KH, B, st.v, WG_BLOCK_K, L::RB);
     if (e) return e;
-    auto kern = flash_attention_wgmma_kernel<HD>;
+    auto kern = flash_attention_wgmma_kernel<TILE, HD>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)L::bytes);
     if (err != cudaSuccess) return (int)err;
@@ -820,6 +835,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return launch<64>(q, k, v, o, st, dtype, B, H, KH, Sq, Sk, causal, scale, stream);
 #endif
 #if MAX_HEAD_DIM >= 128
+    case 112:
+      return launch<112>(q, k, v, o, st, dtype, B, H, KH, Sq, Sk, causal, scale, stream);
     case 128:
       return launch<128>(q, k, v, o, st, dtype, B, H, KH, Sq, Sk, causal, scale, stream);
 #endif

@@ -47,7 +47,8 @@ WG_BLOCK_Q = 128            # bf16: query rows per CTA (64 per warpgroup)
 WG_BLOCK_K = 128            # bf16: key rows per TMA tile
 KV_STAGES = 2               # bf16: kv tiles in flight in shared memory
 MAX_HEAD_DIM = 128
-HEAD_DIMS = tuple(d for d in (16, 32, 64, 128) if d <= MAX_HEAD_DIM)
+# 112 (zamba2's shared attention) runs on the hd-128 tiles in bf16
+HEAD_DIMS = tuple(d for d in (16, 32, 64, 112, 128) if d <= MAX_HEAD_DIM)
 DEFINES = {"BLOCK_Q": BLOCK_Q, "BLOCK_K": BLOCK_K, "WG_BLOCK_Q": WG_BLOCK_Q,
            "WG_BLOCK_K": WG_BLOCK_K, "KV_STAGES": KV_STAGES,
            "MAX_HEAD_DIM": MAX_HEAD_DIM}

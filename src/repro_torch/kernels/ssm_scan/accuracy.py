@@ -9,7 +9,7 @@ several shapes, and times nothing:
 
     PYTHONPATH=src python -m repro_torch.kernels.ssm_scan.accuracy \\
         [--other-ops path/to/ops.py] [--other-source path/to/ssm_scan.cu] \\
-        [--other-define NAME=VALUE ...] --shape B,S,D,N[,f32][,long] ...
+        [--other-define NAME=VALUE ...] --shape B,S,D,N[,f32][,long|,mamba2] ...
 
 The other build is loaded as ``repro_torch.kernels.ab`` loads it.  For
 each shape it prints one JSON line: each build's largest |kernel - plain|
@@ -37,18 +37,24 @@ TOL = 1e-5                  # tests/test_kernels.py's f32 tolerance
 F32_MIX = (torch.float32,) * 4
 # dt, x, Bm, Cm as a bf16 model gives them: dt f32 after its softplus
 MODEL_MIX = (torch.float32, torch.bfloat16, torch.bfloat16, torch.bfloat16)
-KINDS = ("softplus", "long")
+KINDS = ("softplus", "long", "mamba2")
+MAMBA2_HEAD_DIM = 64        # zamba2-7b's ssm_head_dim
 
 
 def inputs(b, s, d, n, dtypes=MODEL_MIX, kind="softplus", *, gen,
-           dt_rank=256):
+           dt_rank=256, head_dim=MAMBA2_HEAD_DIM):
     """(dt, A, Bm, Cm, x) on ``gen``'s device; ``dtypes`` gives dt, x, Bm
     and Cm's.  ``softplus``: dt = softplus(normal), A = -exp(0.3 normal).
     ``long``: Mamba's own ranges, each channel's dt around a level drawn
     log-uniform in [0.001, 0.1] and A = -(1..N), so that channels remember
     up to a thousand steps and an error in a decay adds up over them.  Bm
     and Cm are column slices of one (B, S, dt_rank + 2N) tensor, as the
-    model's x_db gives them."""
+    model's x_db gives them.  ``mamba2``: the call a Mamba2 layer makes
+    (``models/ssm.py::_mamba2_channels``), heads of ``head_dim`` channels,
+    each head's dt = softplus(normal - 2) (dt_bias -2) and A = -exp(0.5
+    normal) repeated over its channels and A over the N states; x, Bm and
+    Cm column slices of one silu-activated (B, S, D + 2N) tensor, as the
+    layer's xbc_conv gives them."""
     dev = gen.device
     t_dt, t_x, t_b, t_c = dtypes
 
@@ -63,6 +69,18 @@ def inputs(b, s, d, n, dtypes=MODEL_MIX, kind="softplus", *, gen,
         dt = torch.exp(level + 0.5 * randn(b, s, d))
         A = -torch.arange(1, n + 1, device=dev,
                           dtype=torch.float32).expand(d, n).contiguous()
+    elif kind == "mamba2":
+        nh = d // head_dim
+        if nh * head_dim != d:
+            raise ValueError(f"D {d} is no whole number of {head_dim}-channel "
+                             f"heads")
+        dt = torch.nn.functional.softplus(randn(b, s, nh) - 2.0) \
+            .repeat_interleave(head_dim, dim=-1)
+        A = (-torch.exp(0.5 * randn(nh))).repeat_interleave(head_dim)[
+            :, None].expand(d, n).contiguous()
+        xbc = torch.nn.functional.silu(randn(b, s, d + 2 * n))
+        return (dt.to(t_dt), A, xbc.to(t_b)[..., d:d + n],
+                xbc.to(t_c)[..., d + n:], xbc.to(t_x)[..., :d])
     else:
         raise ValueError(f"input kind {kind!r}; one of {KINDS}")
     x_db = randn(b, s, dt_rank + 2 * n)
@@ -71,16 +89,18 @@ def inputs(b, s, d, n, dtypes=MODEL_MIX, kind="softplus", *, gen,
 
 
 def parse_shape(shape: str) -> tuple:
-    """``B,S,D,N[,f32][,long]`` -> (B, S, D, N, dtypes, kind): the model's
-    dtypes unless ``f32``, softplus inputs unless ``long``."""
+    """``B,S,D,N[,f32][,long|,mamba2]`` -> (B, S, D, N, dtypes, kind): the
+    model's dtypes unless ``f32``, softplus inputs unless ``long`` or
+    ``mamba2``."""
     fields = shape.split(",")
     opts = set(fields[4:])
-    if len(fields) < 4 or opts - {"f32", "long"}:
-        raise SystemExit(f"ssm_scan shapes are B,S,D,N[,f32][,long], not "
-                         f"{shape!r}")
+    kinds = opts & {"long", "mamba2"}
+    if len(fields) < 4 or opts - {"f32", "long", "mamba2"} or len(kinds) > 1:
+        raise SystemExit(f"ssm_scan shapes are B,S,D,N[,f32][,long|,mamba2],"
+                         f" not {shape!r}")
     b, s, d, n = (int(v) for v in fields[:4])
     return (b, s, d, n, F32_MIX if "f32" in opts else MODEL_MIX,
-            "long" if "long" in opts else "softplus")
+            kinds.pop() if kinds else "softplus")
 
 
 def scan_f64(dt, A, Bm, Cm, x):

@@ -12,10 +12,14 @@ i is superblock ``i // period``, slot ``i % period``.  The JAX SSM LM
 stacks its Mamba1 layers under ``layers`` on a leading ``(n_layers,)``
 axis (``src/repro/models/ssm_lm.py::init``), and the encoder-decoder its
 two stacks under ``encoder`` and ``decoder`` the same way
-(``src/repro/models/encdec.py::init``).  The port keeps every layer's
+(``src/repro/models/encdec.py::init``).  The JAX hybrid stacks its Mamba2
+layers under ``layers`` on leading ``(G, P)`` axes, G groups of
+``shared_attn_period`` layers, beside its unstacked ``shared`` block
+(``src/repro/models/hybrid.py::init``).  The port keeps every layer's
 tensors apart, under ``nn.Module`` names (``layers.3.attn.wq``,
-``layers.3.moe.shared.wg``, ``decoder.3.cross.wk``), so conversion
-unstacks those axes
+``layers.3.moe.shared.wg``, ``decoder.3.cross.wk``; the hybrid's
+``layers.1.0.in_proj``, group 1's first layer, and ``shared.attn.wq``),
+so conversion unstacks those axes
 (``params_from_jax``) or stacks them back (``jax_tree``,
 ``params_to_jax``).  Checkpoints are written in the JAX layout, so that
 either package restores the other's.
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.encdec import EncDec
+from repro_torch.models.hybrid import HybridLM, _groups
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.ssm_lm import MambaLM
 from repro_torch.models.transformer import (Transformer, ffn_group,
@@ -36,9 +41,10 @@ from repro_torch.models.transformer import (Transformer, ffn_group,
 from repro_torch.train.checkpoint import host_array, tensor_from_host
 
 # leaves that stay f32 in a bf16 model, by family: Mamba1's
-# (``ssm.mamba1_init``) and an MoE layer's router and shared gate
-# (``moe.moe_init``)
-F32_LEAVES = {"ssm": ("A_log", "D"), "moe": ("router", "shared_gate")}
+# (``ssm.mamba1_init``), Mamba2's (``ssm.mamba2_init``) and an MoE layer's
+# router and shared gate (``moe.moe_init``)
+F32_LEAVES = {"ssm": ("A_log", "D"), "hybrid": ("A_log", "D", "dt_bias"),
+              "moe": ("router", "shared_gate")}
 # the stacks of each transformer family, under ``blocks``
 GROUPS = {"dense": ("attn", "mlp"), "vlm": ("attn", "mlp"),
           "moe": ("attn", "moe", "mlp_dense")}
@@ -68,10 +74,30 @@ def _stacks(cfg) -> dict:
 
 
 def _flat(cfg) -> bool:
-    """Whether every leaf of a stack has one leading (n_layers,) axis in the
-    JAX layout (the SSM LM's ``layers``, the encoder-decoder's ``encoder``
-    and ``decoder``), not the transformer's superblocks."""
-    return cfg.family in ("ssm", "audio")
+    """Whether every leaf of a stack has the same leading axes in the JAX
+    layout, under the stack's own name: (n_layers,) for the SSM LM's
+    ``layers`` and the encoder-decoder's ``encoder`` and ``decoder``, (G,
+    P) for the hybrid's ``layers``; not the transformer's superblocks."""
+    return cfg.family in ("ssm", "audio", "hybrid")
+
+
+def _port_index(cfg, i: int) -> str:
+    """Layer i's index in its port name: ``g.p`` in the hybrid's groups."""
+    if cfg.family == "hybrid":
+        return "%d.%d" % divmod(i, _groups(cfg)[1])
+    return str(i)
+
+
+def _split_name(cfg, name: str):
+    """(stack, layer i, the rest of the name) of a per-layer port name, or
+    None for any other (``embed.*``, ``final_norm``, ``shared.*``)."""
+    parts = name.split(".")
+    if parts[0] not in _stacks(cfg):
+        return None
+    n = 2 if cfg.family == "hybrid" else 1
+    idx = [int(x) for x in parts[1:1 + n]]
+    i = idx[0] * _groups(cfg)[1] + idx[1] if n == 2 else idx[0]
+    return parts[0], i, tuple(parts[1 + n:])
 
 
 def _layer_path(cfg, stack: str, rest: tuple) -> tuple:
@@ -91,6 +117,8 @@ def _group_layers(cfg, stack: str, group: str) -> list:
 
 def _stack_shape(cfg, stack: str, group: str) -> tuple:
     """The leading axes of the stack ``group`` in the JAX layout."""
+    if cfg.family == "hybrid":
+        return _groups(cfg)
     if _flat(cfg):
         return (_stacks(cfg)[stack],)
     period = cfg.moe_layer_period
@@ -101,6 +129,8 @@ def _stack_shape(cfg, stack: str, group: str) -> tuple:
 
 def _jax_index(cfg, group: str, i: int) -> tuple:
     """Layer i's index into the leading axes of the stack ``group``."""
+    if cfg.family == "hybrid":
+        return divmod(i, _groups(cfg)[1])
     if _flat(cfg):
         return (i,)
     sb, j = superblock_slot(cfg, i)
@@ -110,17 +140,18 @@ def _jax_index(cfg, group: str, i: int) -> tuple:
 def jax_ndim(name: str, p: torch.Tensor, cfg) -> int:
     """The number of dims of port tensor ``name``'s leaf in the JAX layout:
     the stacked axes added to a per-layer tensor's own."""
-    parts = name.split(".")
-    if parts[0] not in _stacks(cfg):
+    split = _split_name(cfg, name)
+    if split is None:
         return p.dim()
-    return p.dim() + len(_stack_shape(cfg, parts[0], parts[2]))
+    stack, _, rest = split
+    return p.dim() + len(_stack_shape(cfg, stack, rest[0]))
 
 
 def decayed_names(named: dict, cfg) -> set:
     """The names AdamW decays: those whose JAX leaf has ``ndim >= 2``
     (``src/repro/train/optimizer.py::_is_matrix``).  Every per-layer tensor
     is one, norms included; ``final_norm`` (and the encoder-decoder's
-    ``enc_norm``) is not."""
+    ``enc_norm``, the hybrid's unstacked ``shared`` norms) is not."""
     return {k for k, p in named.items() if jax_ndim(k, p, cfg) >= 2}
 
 
@@ -129,14 +160,13 @@ def jax_tree(named: dict, cfg) -> dict:
     moments under the same names) as a nested dict in the JAX layout,
     per-layer tensors stacked into new tensors on their device."""
     out, per_layer = {}, {}
-    stacks = _stacks(cfg)
     for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] in stacks:
-            per_layer.setdefault((parts[0],) + tuple(parts[2:]), {})[
-                int(parts[1])] = t
+        split = _split_name(cfg, name)
+        if split is None:
+            _set(out, name.split("."), t)
         else:
-            _set(out, parts, t)
+            stack, i, rest = split
+            per_layer.setdefault((stack,) + rest, {})[i] = t
     for (stack, *rest), by_layer in per_layer.items():
         want = _group_layers(cfg, stack, rest[0])
         if sorted(by_layer) != want:
@@ -169,7 +199,12 @@ def named_from_jax(tree: dict, cfg) -> dict:
         parts = [("layers", (g,), blk) for g, blk in blocks.items()]
     jax_stacks = ("blocks",) if not _flat(cfg) else tuple(stacks)
     for k, a in tree.items():
-        if k != "embed" and k not in jax_stacks:
+        if k == "embed" or k in jax_stacks:
+            continue
+        if isinstance(a, dict):                 # the hybrid's shared block
+            named.update((".".join(path), leaf)
+                         for path, leaf in _leaves(a, (k,)))
+        else:
             named[k] = a                        # final_norm, enc_norm
     for stack, prefix, leaves in parts:
         for path, a in _leaves(leaves, prefix):
@@ -179,7 +214,7 @@ def named_from_jax(tree: dict, cfg) -> dict:
                                  f"{tuple(np.shape(a)[:len(lead)])}, not "
                                  f"{lead}")
             for i in _group_layers(cfg, stack, path[0]):
-                named[".".join((stack, str(i)) + path)] = \
+                named[".".join((stack, _port_index(cfg, i)) + path)] = \
                     a[_jax_index(cfg, path[0], i)]
     return named
 
@@ -221,6 +256,11 @@ def params_from_jax(tree: dict, cfg, device=None, dtype=None):
 
     if cfg.family == "ssm":
         return MambaLM(cfg, embed, named["final_norm"], stack("layers"))
+    if cfg.family == "hybrid":
+        g, p = _groups(cfg)
+        return HybridLM(cfg, embed, named["final_norm"], layer("shared."),
+                        [[layer(f"layers.{i}.{j}.") for j in range(p)]
+                         for i in range(g)])
     if cfg.family == "audio":
         return EncDec(cfg, embed, named["enc_norm"], named["final_norm"],
                       stack("encoder"), stack("decoder"))

@@ -3,11 +3,11 @@
 Every family exposes ``init(gen, cfg[, trainable])`` / ``forward`` /
 ``loss_fn`` / ``prefill`` / ``decode_step`` / ``cache_init`` with dict
 batches, as in the JAX package, so the trainer and the serving engines
-treat every arch alike.  The port has the dense and MoE families (the
-transformer), the VLM family (the transformer with stub patch embeddings
-before the tokens), the SSM family (Mamba1) and the audio family (the
-encoder-decoder); the hybrid family raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+treat every arch alike.  The port has every family of the JAX package: the
+dense and MoE families (the transformer), the VLM family (the transformer
+with stub patch embeddings before the tokens), the SSM family (Mamba1),
+the audio family (the encoder-decoder) and the hybrid family (Mamba2
+groups with a shared attention block).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.models import encdec, ssm_lm, transformer, vlm
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer, vlm
 
 
 class ModelApi(NamedTuple):
@@ -29,22 +29,13 @@ class ModelApi(NamedTuple):
 
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": vlm,
-             "ssm": ssm_lm, "audio": encdec}
-
-# where each family not ported yet stands in ROADMAP.md ("Modules still to
-# port")
-_NOT_PORTED = {
-    "hybrid": "item 8 (hybrid: models/hybrid.py)",
-}
+             "ssm": ssm_lm, "audio": encdec, "hybrid": hybrid}
 
 
 def get_model(cfg) -> ModelApi:
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
-        where = _NOT_PORTED.get(cfg.family, "item 8")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP modules {where})")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return ModelApi(mod.init, mod.forward, mod.loss_fn, mod.prefill,
                     mod.decode_step, mod.cache_init)
 

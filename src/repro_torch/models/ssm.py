@@ -1,5 +1,5 @@
-"""State-space blocks: Mamba1 (falcon-mamba).  Mamba2 comes with the hybrid
-family (ROADMAP modules item 8).
+"""State-space blocks: Mamba1 (falcon-mamba) and Mamba2 (zamba2's blocks,
+``models/hybrid.py``).
 
 Prefill and serving (no gradient recorded): the selective scan goes
 straight to the ``ssm_scan`` wrapper (the CUDA kernel on the card, its
@@ -10,6 +10,12 @@ decode.  Training (gradients recorded): the scan goes through
 ``SSMScan``, the same forward, with the backward of the JAX package's
 chunked scan (``ssm_scan_chunked``).  Decode path: O(1) recurrent step
 with (conv_state, h) carried in the cache.
+
+Mamba2 is the same recurrence over D = n_heads * head_dim channels with a
+decay per head: a head's dt and A = -exp(A_log) repeated over its
+head_dim channels (``_mamba2_channels``), so it goes through the same
+wrapper and kernel (N 64 at zamba2: the ``ssm_scan64`` build).  The JAX
+twin materialises (B, S, n_heads, head_dim, N) instead.
 
 The config knobs that change only how the JAX package computes the same
 function (``fused_ssm_y``, ``unroll_scans``, ``ssm_chunk``) are ignored
@@ -22,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.ops import SSMScan, ssm_scan
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, rms_norm
 
 
 def check_scan_dtype(cfg):
@@ -140,6 +146,120 @@ def mamba1_state_init(batch, cfg, dtype, device=None):
                             dtype=dtype, device=device),
         "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
                          dtype=torch.float32, device=device),
+    }
+
+
+# ============================================================================
+# Mamba2 (zamba2-7b)
+# ============================================================================
+def mamba2_init(gen: torch.Generator, cfg, dtype) -> dict:
+    d, di, st, nh, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                        cfg.ssm_heads, cfg.ssm_conv)
+    dev = gen.device
+    conv_ch = di + 2 * st
+    return {
+        "in_proj": dense_init(gen, (d, 2 * di + 2 * st + nh), dtype),
+        "conv_w": dense_init(gen, (k, conv_ch), dtype),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "A_log": torch.zeros((nh,), dtype=torch.float32, device=dev),
+        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.full((nh,), -2.0, dtype=torch.float32, device=dev),
+        "norm_w": torch.ones((di,), dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, (di, d), dtype),
+    }
+
+
+def _mamba2_split(p, x, cfg):
+    di, st = cfg.d_inner, cfg.ssm_state
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    return zxbcdt.split([di, di + 2 * st, cfg.ssm_heads], dim=-1)
+
+
+def _mamba2_ssm(p, xbc_conv, dt, cfg):
+    """The scan's inputs per head: dt (B,S,nh) f32 after its softplus, A
+    (nh,) f32, and x (B,S,D), Bm, Cm (B,S,N), column slices of
+    ``xbc_conv`` in the model dtype.  (The JAX twin returns the
+    materialised decay and input instead.)"""
+    check_scan_dtype(cfg)
+    di, st = cfg.d_inner, cfg.ssm_state
+    xh, Bm, Cm = xbc_conv.split([di, st, st], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    return dt, -torch.exp(p["A_log"]), xh, Bm, Cm
+
+
+def _mamba2_channels(dt, A, cfg):
+    """Each head's dt (B,S,nh) and A (nh,) repeated over its head_dim
+    channels: dt (B,S,D) and A (D,N), f32 and contiguous, as the scan
+    takes them."""
+    hd = cfg.ssm_head_dim
+    return (dt.repeat_interleave(hd, dim=-1),
+            A.repeat_interleave(hd)[:, None].expand(-1, cfg.ssm_state)
+            .contiguous())
+
+
+def _mamba2_out(p, y, xh, z, x, cfg):
+    """D skip, gate, the gated RMS norm and out_proj after the scan."""
+    y = y + p["D"].repeat_interleave(cfg.ssm_head_dim) * xh.float()
+    y = rms_norm(y * F.silu(z.float()), p["norm_w"], cfg.norm_eps)
+    return torch.einsum("bsc,cd->bsd", y.to(x.dtype), p["out_proj"])
+
+
+def mamba2_apply(p, x, cfg, *, return_state: bool = False):
+    """x (B,S,d) -> (B,S,d).  With ``return_state`` also the state after the
+    last token, dict(conv (B,K-1,d_inner+2N), h (B,nh,head_dim,N) f32), as
+    a prefill hands it to decode: the scan's own final state (the JAX
+    prefill scans a second time for it)."""
+    b = x.shape[0]
+    z, xbc, dt = _mamba2_split(p, x, cfg)
+    xbc_conv = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    dt, A, xh, Bm, Cm = _mamba2_ssm(p, xbc_conv, dt, cfg)
+    dt, A = _mamba2_channels(dt, A, cfg)
+    if return_state:
+        y, h = ssm_scan(dt, A, Bm, Cm, xh, return_state=True)
+    elif torch.is_grad_enabled():
+        y = SSMScan.apply(dt, A, Bm, Cm, xh)
+    else:
+        y = ssm_scan(dt, A, Bm, Cm, xh)
+    out = _mamba2_out(p, y, xh, z, x, cfg)
+    if not return_state:
+        return out
+    km1 = cfg.ssm_conv - 1
+    xp = F.pad(xbc, (0, 0, max(km1 - xbc.shape[1], 0), 0))
+    return out, {"conv": xp[:, xp.shape[1] - km1:],
+                 "h": h.view(b, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state)}
+
+
+def mamba2_decode(p, x, state, cfg):
+    """x (B,1,d); state dict(conv (B,K-1,d_inner+2N), h (B,nh,head_dim,N))
+    -> (y, state).  Writes the new conv window and h into ``state``'s
+    tensors IN PLACE (the JAX twin returns new ones) and returns them."""
+    b = x.shape[0]
+    nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc, dt = _mamba2_split(p, x, cfg)
+    xc, conv_state = _conv_step(state["conv"], xbc[:, 0], p["conv_w"],
+                                p["conv_b"])
+    dt, A, xh, Bm, Cm = _mamba2_ssm(p, F.silu(xc)[:, None, :], dt, cfg)
+    a = torch.exp(dt[:, 0] * A)                                   # (B,nh)
+    xheads = xh[:, 0].float().view(b, nh, hd)
+    bx = (dt[:, 0, :, None] * xheads)[..., None] \
+        * Bm[:, 0].float()[:, None, None, :]
+    h = a[..., None, None] * state["h"] + bx
+    y = torch.einsum("bhdn,bn->bhd", h, Cm[:, 0].float()).reshape(b, 1, -1)
+    out = _mamba2_out(p, y, xh, z, x, cfg)
+    state["conv"].copy_(conv_state)
+    state["h"].copy_(h)
+    return out, state
+
+
+def mamba2_state_init(batch, cfg, dtype, device=None):
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                             cfg.d_inner + 2 * cfg.ssm_state),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                          cfg.ssm_state), dtype=torch.float32,
+                         device=device),
     }
 
 

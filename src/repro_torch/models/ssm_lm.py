@@ -54,8 +54,9 @@ class MambaLM(nn.Module):
 def _check_family(cfg):
     if cfg.family != "ssm" or cfg.ssm_version != 1:
         raise NotImplementedError(
-            f"{cfg.name}: the port's ssm_lm runs Mamba1 stacks (falcon-mamba);"
-            f" Mamba2 comes with the hybrid family (ROADMAP modules item 8)")
+            f"{cfg.name}: the port's ssm_lm runs Mamba1 stacks (falcon-mamba),"
+            f" not family {cfg.family!r} with ssm_version {cfg.ssm_version};"
+            f" Mamba2 stacks are the hybrid family's (models/hybrid.py)")
     ssm.check_scan_dtype(cfg)
 
 

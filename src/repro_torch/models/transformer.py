@@ -95,7 +95,8 @@ def _check_family(cfg):
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the port's transformer runs the dense, MoE and "
-            f"VLM families; {cfg.family!r} is ROADMAP modules item 8")
+            f"VLM families, not {cfg.family!r} (registry.get_model gives "
+            f"each family its module)")
     if (cfg.family == "moe") != bool(cfg.n_experts):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with "
                          f"{cfg.n_experts} experts")

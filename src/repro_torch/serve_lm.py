@@ -13,8 +13,10 @@ the device; a VLM's patch embeddings and an audio model's frame embeddings
 are the stub frontends' zeros.  On the card every prefill of the dense,
 MoE and VLM families goes through the ``flash_attention`` kernel (the
 audio family's: its encoder's, decoder's and cross-attention's), every
-prefill of the SSM family (falcon-mamba) through ``ssm_scan``, and every
-ETL shuffle through ``radix_partition``.
+prefill of the SSM family (falcon-mamba) through ``ssm_scan``, every
+prefill of the hybrid family (zamba2) through both (the shared block's
+attention once a group, the scan once a Mamba2 layer), and every ETL
+shuffle through ``radix_partition``.
 
     python -m repro_torch.serve_lm                 # 4 ranks on cuda:0
     python -m repro_torch.serve_lm --device cpu
@@ -22,6 +24,7 @@ ETL shuffle through ``radix_partition``.
     python -m repro_torch.serve_lm --device cpu --arch qwen2-moe-a2.7b
     python -m repro_torch.serve_lm --device cpu --arch internvl2-1b
     python -m repro_torch.serve_lm --device cpu --arch whisper-medium
+    python -m repro_torch.serve_lm --device cpu --arch zamba2-7b
 """
 from __future__ import annotations
 
@@ -143,8 +146,8 @@ def act_continuous(cfg, params, requests, devices, *, max_batch: int,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-3-8b",
-                    help="an arch of a ported family (dense, moe, vlm, "
-                         "ssm or audio), at reduced widths")
+                    help="an arch of any family (dense, moe, vlm, ssm, "
+                         "audio or hybrid), at reduced widths")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--device", default=None,
                     help="device of the ranks (default: cuda:0)")

@@ -10,7 +10,8 @@ Presets:
 The ci preset takes another family's arch at the same widths (``--arch``:
 a VLM's batches carry patch embeddings, an audio model's frame
 embeddings, both drawn from the corpus's seed as the stub frontends' input;
-falcon-mamba-7b trains through the ``ssm_scan`` kernel on the card).
+falcon-mamba-7b and zamba2-7b train through the ``ssm_scan`` kernel on the
+card).
 
     python -m repro_torch.train_lm [--preset full]      # on the card
     python -m repro_torch.train_lm --device cpu --synthetic --steps 20

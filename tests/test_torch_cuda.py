@@ -930,3 +930,152 @@ def test_trainer_steps_and_resumes_on_the_card(cuda, tmp_path):
     assert back.step == 8
     for a, b in zip(back.params.parameters(), state.params.parameters()):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family: flash_attention at head dim 112 (zamba2's shared block,
+# on the hd-128 tiles in bf16) and Mamba2 through ssm_scan
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 129, 300, 2048])
+def test_flash_attention_f32_kernel_across_head_dims(cuda, hd, s):
+    """Every head dim the kernel takes in f32, GQA group 4, lengths that end
+    inside, on and past a 64-row tile, within 2e-5 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((1, s, 8, hd), (1, s, 2, hd), (1, s, 2, hd)))
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s", [1, 63, 129, 300, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_head_dim_112_forward_and_backward(cuda, s, dtype):
+    """zamba2's shared attention (32 heads, MHA, hd 112) at B = 1: the
+    kernel's forward within the standing tolerances (a bf16 result also
+    against the plain version in f32), and through FlashAttention the
+    gradients of autograd through the plain path the train step
+    differentiates at that length, bit for bit."""
+    import functools
+    from repro_torch.models.attention import AttnMode, attend_plain
+    gen = torch.Generator(device=cuda).manual_seed(112 + s)
+    q, k, v = (torch.randn((1, s, 32, 112), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), fa.flash_attention_plain(
+        q, k, v).float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), fa.flash_attention_plain(
+            q.float(), k.float(), v.float()), atol=4e-3, rtol=2e-2)
+    plain = functools.partial(attend_plain, mode=AttnMode())
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    got = torch.autograd.grad(fa.FlashAttention.apply(q, k, v, True, plain),
+                              (q, k, v), g)
+    want = torch.autograd.grad(plain(q, k, v, causal=True), (q, k, v), g)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _mamba2_scan_inputs(cuda, s, dtype, seed=0):
+    """The scan's inputs as zamba2-7b's Mamba2 layer gives them
+    (``ssm._mamba2_ssm`` and ``_mamba2_channels``): each of 112 heads' dt
+    and A = -exp(A_log) repeated over its 64 channels (D = 7168), x, Bm and
+    Cm slices of a (1, S, 7168 + 2 * 64) ``xbc_conv`` in ``dtype``; the
+    head's decay rates drawn, dt_bias -2 as the init's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2-7b")
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    nh = cfg.ssm_heads
+    p = {"A_log": torch.randn(nh, generator=gen, device=cuda) * 0.5,
+         "dt_bias": torch.full((nh,), -2.0, device=cuda)}
+    xbc = torch.nn.functional.silu(torch.randn(
+        (1, s, cfg.d_inner + 2 * cfg.ssm_state), generator=gen,
+        device=cuda)).to(dtype)
+    dt = torch.randn((1, s, nh), generator=gen, device=cuda).to(dtype)
+    dth, A, xh, Bm, Cm = ssm._mamba2_ssm(p, xbc, dt, cfg)
+    dtc, Ac = ssm._mamba2_channels(dth, A, cfg)
+    return dtc, Ac, Bm, Cm, xh
+
+
+@pytest.mark.parametrize("s", [1, 300, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_scan_through_the_kernel_holds_to_float64(cuda, s, dtype):
+    """zamba2-7b's Mamba2 call of ssm_scan (the ssm_scan64 build), f32 and
+    the bf16 model's mix: y within 1e-5 + 1e-5 * sum_n |h_n C_n| and the
+    final state within 1e-5 + 1e-5 * |exact| of the float64 scan of the
+    same values, as the plain version holds them; a second call
+    bit-identical."""
+    args = _mamba2_scan_inputs(cuda, s, dtype, seed=s)
+    assert ssm_ops.build_for(args[1].shape[1]) == 64
+    before = ssm_ops.ssm_scan.launches
+    out = ssm_ops.ssm_scan(*args, return_state=True)
+    assert ssm_ops.ssm_scan.launches == before + 1
+    exact = accuracy.scan_f64(*args)
+    assert accuracy.held_to_f64(out, exact) <= 1
+    assert accuracy.held_to_f64(
+        ssm_ops.ssm_scan_plain(*args, return_state=True), exact) <= 1
+    again = ssm_ops.ssm_scan(*args, return_state=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_mamba2_scan_function_grads_are_chunked_autograd_bit_for_bit(cuda):
+    """One zamba2 layer's SSMScan call at S = 300: gradients of autograd
+    through ssm_scan_chunked, bit for bit, reaching A_log through the
+    per-head repeat."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2-7b")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a_log = (torch.randn(cfg.ssm_heads, generator=gen, device=cuda)
+             * 0.5).requires_grad_()
+    dt, _, Bm, Cm, x = (t.detach().requires_grad_() for t in
+                        _mamba2_scan_inputs(cuda, 300, torch.bfloat16))
+    A = ssm._mamba2_channels(dt[..., ::cfg.ssm_head_dim],
+                             -torch.exp(a_log), cfg)[1]
+    g = torch.randn(x.shape, generator=gen, device=cuda)
+    wrt = (dt, a_log, Bm, Cm, x)
+    got = torch.autograd.grad(ssm_ops.SSMScan.apply(dt, A, Bm, Cm, x), wrt,
+                              g, retain_graph=True)     # A's repeat again
+    want = torch.autograd.grad(ssm_ops.ssm_scan_chunked(dt, A, Bm, Cm, x),
+                               wrt, g)
+    assert all(torch.equal(u, w) for u, w in zip(got, want))
+    assert float(got[1].abs().max()) > 0
+
+
+def test_hybrid_f32_token_check_at_reduced_widths(cuda, monkeypatch):
+    """zamba2 at reduced widths (2 groups of 2 Mamba2 layers, the shared
+    block at hd 16) in f32: prefill through both kernels plus plain decode,
+    in the continuous engine, against a full forward per token;
+    flash_attention once a group and ssm_scan once a layer a prefill."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine, greedy_reference
+    from repro_torch.serve_lm import make_requests
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = reduced(get_config("zamba2-7b"))
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    reqs = make_requests(cfg, [30, 2, 19], [6, 6, 6])
+    before = fa.flash_attention.launches, ssm_ops.ssm_scan.launches
+    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=64).run(reqs)
+    assert fa.flash_attention.launches - before[0] == 2 * len(reqs)
+    assert ssm_ops.ssm_scan.launches - before[1] == 4 * len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+
+
+def test_serve_lm_serves_zamba2_on_the_card(cuda):
+    from repro_torch import serve_lm
+    before = fa.flash_attention.launches, ssm_ops.ssm_scan.launches
+    serve_lm.main(["--device", str(cuda), "--arch", "zamba2-7b"])
+    assert fa.flash_attention.launches > before[0]
+    assert ssm_ops.ssm_scan.launches > before[1]

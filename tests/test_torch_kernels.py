@@ -283,11 +283,33 @@ def test_flash_attention_matches_jax_kernel_and_oracle():
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_dim_112_matches_jax_kernel_and_oracle(
+        causal):
+    """zamba2-7b's shared attention (hd 112, which the card runs on the
+    hd-128 tiles) at (b,s,h,kh) = (1,128,4,4) f32, causal and not: the
+    port's CPU path against the JAX kernel in interpret mode (its blocks
+    span the whole of hd) and the JAX oracle, at the f32 tolerance."""
+    q, k, v = _attn_inputs(1, 128, 4, 4, 112, np.float32, seed=112)
+    got = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             causal=causal).numpy()
+    kern = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, q_block=64,
+                                kv_block=64, interpret=True))
+    ref = jax.jit(jax_attn_ref, static_argnames="causal")(
+        *(jnp.moveaxis(jnp.asarray(x), 2, 1) for x in (q, k, v)),
+        causal=causal)
+    np.testing.assert_allclose(got, kern, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(jnp.moveaxis(ref, 1, 2)),
+                               atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("b,s,h,kh,hd", [
     (2, 256, 8, 2, 64),      # GQA 4x
     (1, 130, 8, 8, 32),      # unaligned seq
     (2, 384, 6, 3, 128),     # large head_dim
     (1, 17, 4, 1, 16),       # ragged, smallest head_dim
+    (1, 129, 4, 2, 112),     # zamba2's head_dim, past a 128-row tile
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_sweep_matches_jax_oracle(b, s, h, kh, hd, dtype):
@@ -624,19 +646,28 @@ def test_ssm_scan_kernel_order_matches_jax_ref(b, s, d, n):
 def test_ssm_scan_float64_witness_matches_the_oracles(kind, b, s, d, n):
     """The checks' inputs and their float64 witness on the CPU: the inputs
     have the kernel's shapes and dtypes, Bm and Cm column slices of one
-    x_db; the float64 scan agrees with the port's oracle and the JAX
-    oracle at the f32 tolerance; and the oracle holds the bound that the
-    check at zamba2's width puts on the kernel (``held_to_f64``)."""
+    x_db (a Mamba2 layer's: of one xbc_conv, with x, each head's dt and A
+    repeated over its channels); the float64 scan agrees with the port's
+    oracle and the JAX oracle at the f32 tolerance; and the oracle holds
+    the bound that the check at zamba2's width puts on the kernel
+    (``held_to_f64``)."""
     gen = torch.Generator().manual_seed(s)
     args = ssm_accuracy.inputs(b, s, d, n, ssm_accuracy.MODEL_MIX, kind,
-                               gen=gen, dt_rank=7)
+                               gen=gen, dt_rank=7, head_dim=8)
     dt, A, bm, cm, x = args
     assert [t.dtype for t in (dt, x, bm, cm)] == \
         list(ssm_accuracy.MODEL_MIX)
     assert A.shape == (d, n) and bm.shape == cm.shape == (b, s, n)
-    assert bm.stride(1) == cm.stride(1) == 7 + 2 * n
+    assert bm.stride(1) == cm.stride(1) == \
+        (d if kind == "mamba2" else 7) + 2 * n
     if kind == "long":
         assert torch.equal(A[0], -torch.arange(1.0, n + 1))
+    if kind == "mamba2":
+        assert torch.equal(dt.view(b, s, d // 8, 8),
+                           dt[..., ::8, None].expand(b, s, d // 8, 8))
+        assert torch.equal(A, A[::8].repeat_interleave(8, dim=0))
+        assert torch.equal(A, A[:, :1].expand(d, n))
+        assert x.stride(1) == d + 2 * n
     y64, h64, size = ssm_accuracy.scan_f64(*args)
     assert y64.dtype == torch.float64 and size.shape == y64.shape
     assert bool((size >= y64.abs()).all())

@@ -26,7 +26,7 @@ from repro.serve.continuous import cache_batch_axes as jax_cache_batch_axes
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models import attention as TA
-from repro_torch.models import get_model
+from repro_torch.models import get_model, hybrid, ssm_lm
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
@@ -334,15 +334,15 @@ def test_init_draws_the_jax_shapes_from_a_generator():
     assert not any(p.requires_grad for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", [a for a in list_archs() if get_config(a)
-                                  .family not in ("dense", "ssm", "moe",
-                                                  "vlm", "audio")])
-def test_registry_raises_for_families_not_ported(arch):
-    cfg = t_reduced(t_get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP modules item 8"):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init(torch.Generator(), cfg)
+@pytest.mark.parametrize("module", [TT, ssm_lm])
+def test_transformer_and_ssm_lm_refuse_a_hybrid_config(module):
+    """Every family has its module (the hybrid's: ``models/hybrid.py``);
+    the transformer and the Mamba1 LM refuse zamba2's config, naming its
+    family."""
+    cfg = t_reduced(t_get_config("zamba2-7b"))
+    assert get_model(cfg).init is hybrid.init
+    with pytest.raises(NotImplementedError, match="'hybrid'"):
+        module.init(torch.Generator(), cfg)
 
 
 # ---------------------------------------------------------------------------
