@@ -141,14 +141,42 @@ Phases, one JSON line each:
             through comm.checkpoint every 5 steps, its first attempt raises
             after step 12, the retry resumes from step 10 and finishes; the
             session's trace exported by the port's Perfetto export
+  train_dist   qwen3-8b at its published widths in bf16, 4 of its 36
+            layers, on a (2, 2) mesh of 4 logical ranks of cuda:0
+            (make_local_mesh; Trainer(mesh=)), global batch 2 x 2048 (1 x
+            2048 a data rank), 5 AdamW steps: the loss falls, peak memory
+            under 80 GB, flash_attention 16 times a step (4 layers x 2 data
+            ranks x 2 under remat), each rank's bytes of parameters and
+            moments its share of each sharded leaf plus the replicated
+            ones; the trainer's save of step 5 (unsharded onto the host),
+            one more step under the profiler; then the checkpoint restored
+            onto (4, 1), (1, 4) and (1, 1) meshes, each restore's
+            parameters and moments bit-equal to those saved (compared on
+            the card), and one step on (1, 4)
+  train_dist_f32  qwen3-8b's widths with 2 layers in float32 (TF32 off):
+            the same parameters and batches to a (2, 2) trainer and a
+            one-rank trainer, 3 steps: losses within 1e-5 relative
+  moe_ep    one qwen2-moe-a2.7b MoE layer at its published widths in f32
+            (60 experts top-4, 4 shared; cf 1.25), 2 x 2048 tokens drawn
+            around one shared vector so that pairs drop, on a (2, 2) mesh:
+            moe_ffn_shardmap within 1e-5 of the largest |output| of
+            moe_ffn run on each data shard alone; pairs dropped, ms
+  compress  compressed_psum_mean over 4 logical ranks of cuda:0 on
+            (4096, 12288) f32 tensors (qwen3-8b's MLP wg gradient): the
+            mean within 0.02 of the exact mean (relative to its largest
+            magnitude), each rank's x + e_old - e_new equal to its
+            dequantised value, a second call fed the errors within the
+            same bound; ms and wire bytes against f32
 
 The main-path phases (dist, pipeline, shuffle, process, the thirteen
-serve phases, sort and the nine train phases)
+serve phases, sort, the nine train phases and the four distributed ones)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (the bf16 serve phases and
 serve_llama4: exactly once per layer per prefill, whisper's decoder layers
 twice, zamba2's attention once a group; the train phases: once per layer
-per forward, twice under remat).  Then
+per forward, twice under remat; train_dist: once per layer per forward
+per data rank, twice under remat; moe_ep and compress run no kernel).
+Then
 come the kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -213,6 +241,11 @@ AUDIO_BUDGETS = [128, 64] * 4
 TRAIN_SSM_LAYERS, TRAIN_FULL_STEPS = 4, 3
 TRAIN_CPU_GPU_STEPS, TRAIN_CPU_GPU_RTOL = 10, 1e-4
 TASK_STEPS, TASK_CKPT_EVERY, TASK_FAIL_AT = 20, 5, 12
+DIST_GRID, DIST_BATCH = (2, 2), 2         # train_dist's mesh and rows
+DIST_RESTORE_GRIDS = ((4, 1), (1, 4), (1, 1))
+DIST_F32_LAYERS, DIST_F32_STEPS, DIST_F32_RTOL = 2, 3, 1e-5
+EP_TOKENS, EP_RTOL = 2 * 2048, 1e-5         # moe_ep on DIST_GRID
+COMPRESS_SHAPE, COMPRESS_RTOL = (4096, 12288), 0.02
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (same)
 # exponentials: 16 a clock per SM (CUDA programming guide, compute
@@ -2237,6 +2270,318 @@ def phase_train_task(specs, records):
             "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: a mesh of logical ranks on one card
+# ---------------------------------------------------------------------------
+def _unsharded(tr, state) -> dict:
+    """A sharded trainer's state as whole tensors in the JAX layout, on
+    the card (the trainer's own ``state_tree`` puts them on the host)."""
+    from repro_torch.distributed.sharding import nest_paths, unshard_tree
+    specs, o = tr.bundle.info["pspecs"], state.opt_state
+
+    def whole(ranks):
+        return nest_paths(unshard_tree(ranks, specs, tr.mesh, CARD))
+    return {"params": whole(state.params),
+            "opt": {"mu": whole([r["mu"] for r in o]),
+                    "nu": whole([r["nu"] for r in o]),
+                    "count": o[0]["count"]}}
+
+
+def _state_equal(tr, state, saved: dict) -> bool:
+    """A trainer's state against ``saved`` (``_unsharded``'s tree) bit for
+    bit, leaf by leaf on the card: a mesh's blocks unsharded one leaf at a
+    time, a one-rank state's tensors against their slices of the leaves."""
+    from repro_torch.distributed.sharding import flat_paths, unshard
+    from repro_torch.models.convert import named_from_jax
+    o = state.opt_state
+    if tr.mesh is None:
+        pairs = [(dict(state.params.named_parameters()),
+                  named_from_jax(saved["params"], tr.cfg))] + [
+            (o[m], named_from_jax(saved["opt"][m], tr.cfg))
+            for m in ("mu", "nu")]
+        return int(o["count"]) == int(saved["opt"]["count"]) and all(
+            torch.equal(t, want[k]) for named, want in pairs
+            for k, t in named.items())
+    specs = tr.bundle.info["pspecs"]
+    pairs = [(state.params, flat_paths(saved["params"]))] + [
+        ([r[m] for r in o], flat_paths(saved["opt"][m])) for m in ("mu", "nu")]
+    return all(int(r["count"]) == int(saved["opt"]["count"]) for r in o) \
+        and all(torch.equal(unshard([r[path] for r in ranks], spec, tr.mesh,
+                                    name=path), want[path])
+                for ranks, want in pairs for path, spec in specs.items())
+
+
+def _rank_bytes(state, info, grid) -> dict:
+    """Each rank's bytes of parameters and of moments, against its share:
+    each leaf's bytes (its shape in the JAX layout) over the number of
+    ranks its spec splits it across, a replicated leaf whole."""
+    sizes = dict(zip(("data", "model"), grid))
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    share = {"params": 0, "moments": 0}
+    for path, spec in info["pspecs"].items():
+        split = 1
+        for e in spec:
+            for a in (() if e is None else (e,) if isinstance(e, str)
+                      else e):
+                split *= sizes[a]
+        n = int(np.prod(info["layout"][path][0])) // split
+        share["params"] += n * state.params[0][path].element_size()
+        share["moments"] += 2 * 4 * n            # mu and nu, f32
+    ranks = [{"params": sum(nbytes(t) for t in p.values()),
+              "moments": sum(nbytes(t) for t in list(o["mu"].values())
+                             + list(o["nu"].values()))}
+             for p, o in zip(state.params, state.opt_state)]
+    if any(r != share for r in ranks):
+        raise AssertionError(f"rank bytes {ranks}, not the share {share}")
+    return {"per_rank": ranks, "share": share}
+
+
+def phase_train_dist(specs, records):
+    """qwen3-8b at its published widths in bf16, TRAIN_QWEN3_LAYERS of its
+    layers, on a DIST_GRID mesh of logical ranks of cuda:0, TRAIN_STEPS
+    steps on one batch of DIST_BATCH x TRAIN_SEQ tokens: the loss falls,
+    flash_attention once per layer per forward per data rank (twice under
+    remat), peak memory under 80 GB, each rank's bytes its share.  Then the
+    step's checkpoint restored onto each of DIST_RESTORE_GRIDS bit-equal,
+    and one step on (1, 4)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.distributed.sharding import flat_paths
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import make_concrete_batch, train_batch_shapes
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=TRAIN_QWEN3_LAYERS)
+    steps, grid = TRAIN_STEPS, DIST_GRID
+    shape = ShapeConfig("t", "train", TRAIN_SEQ, DIST_BATCH)
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps)
+    batch = make_concrete_batch(train_batch_shapes(cfg, DIST_BATCH,
+                                                   TRAIN_SEQ),
+                                np.random.default_rng(0), cfg.vocab_size,
+                                CARD)
+
+    def trainer(g):
+        return Trainer(cfg, ParallelConfig(), shape, ocfg,
+                       mesh=make_local_mesh(*g, device=CARD), ckpt_dir=ckdir)
+    remat = 2 if cfg.remat else 1
+    per_step = cfg.n_layers * grid[0] * remat
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckdir:
+        tr = trainer(grid)
+        with MainPath(specs, records, ("flash_attention",)) as mp:
+            state, init_s = wall(tr.init_state)
+            stamps = {}
+            (state, losses), fit_s = wall(lambda: tr.fit(
+                [batch] * steps, steps, state, log_every=0,
+                on_metrics=_step_times(stamps)))
+        counts = mp.counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if counts["flash_attention"] != per_step * steps:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{counts['flash_attention']} times in "
+                                 f"{steps} steps of {per_step}")
+        if not (losses[-1] < losses[0] and np.all(np.isfinite(losses))):
+            raise AssertionError(f"the loss did not fall: {losses}")
+        if peak_gb >= 80:
+            raise AssertionError(f"train_dist: a step's peak is {peak_gb} GB")
+        rank_bytes = _rank_bytes(state, tr.bundle.info, grid)
+        # the trainer's save: unsharded onto the host, then written
+        tree, unshard_s = wall(lambda: tr.state_tree(state))
+        _, save_s = wall(lambda: ckpt.save(ckdir, steps, tree,
+                                           async_=False))
+        n_params = sum(t.numel() for t in flat_paths(tree["params"])
+                       .values())
+        del tree
+        saved = _unsharded(tr, state)
+        # one more step under the profiler (the state moves past the save)
+        prof = profile(lambda: tr.bundle.fn(state.params, state.opt_state,
+                                            batch))
+        del state, tr
+        free_device_memory()
+        restores = []
+        for g in DIST_RESTORE_GRIDS:
+            tr2 = trainer(g)
+            back, restore_s = wall(tr2.maybe_restore)
+            equal = back.step == steps and _state_equal(tr2, back, saved)
+            if not equal:
+                raise AssertionError(f"the restore onto {g} differs from "
+                                     f"step {steps}'s state")
+            rec = {"grid": list(g), "restore_s": restore_s,
+                   "bit_equal": equal}
+            if g == (1, 4):
+                with MainPath(specs, records, ("flash_attention",)) as mp2:
+                    (_, more), step_s = wall(lambda: tr2.fit(
+                        [batch], 1, back, log_every=0))
+                if not np.isfinite(more[0]):
+                    raise AssertionError(f"the step on {g}: {more}")
+                rec.update(step_loss=more[0], step_s=step_s,
+                           launches=mp2.counts())
+            restores.append(rec)
+            del back, tr2
+            free_device_memory()
+    del saved
+    free_device_memory()
+    step_ms = _step_ms(stamps["t"])
+    return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+            "mesh": list(grid), "ranks_on": CARD,
+            "batch": DIST_BATCH, "seq": TRAIN_SEQ,
+            "rows_per_data_rank": DIST_BATCH // grid[0],
+            "param_count": n_params, "init_s": init_s, "fit_s": fit_s,
+            "losses": losses, "step_ms": step_ms,
+            "tokens_per_s": DIST_BATCH * TRAIN_SEQ / step_ms * 1e3,
+            "peak_gb": peak_gb, "rank_bytes": rank_bytes,
+            "flash_attention_launches_per_step": per_step,
+            "profile_step": prof, "unshard_s": unshard_s, "save_s": save_s,
+            "restores": restores, "launches": counts}
+
+
+def phase_train_dist_f32(specs, records):
+    """qwen3-8b's widths with DIST_F32_LAYERS layers in float32 (TF32 off):
+    the same parameters and batches to a DIST_GRID trainer and a one-rank
+    trainer, DIST_F32_STEPS steps: losses within DIST_F32_RTOL relative."""
+    import dataclasses
+    from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (get_model, make_concrete_batch,
+                                    train_batch_shapes)
+    from repro_torch.models.convert import jax_tree
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=DIST_F32_LAYERS, dtype="float32")
+    steps, grid = DIST_F32_STEPS, DIST_GRID
+    shape = ShapeConfig("t", "train", TRAIN_SEQ, DIST_BATCH)
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps)
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(1)
+    model = get_model(cfg).init(gen, cfg)
+    tree = jax_tree(dict(model.named_parameters()), cfg)
+    del model
+    batches = [make_concrete_batch(train_batch_shapes(cfg, DIST_BATCH,
+                                                      TRAIN_SEQ),
+                                   np.random.default_rng(i), cfg.vocab_size,
+                                   CARD) for i in range(steps)]
+    losses, walls = {}, {}
+    free_device_memory()
+    with MainPath(specs, records, ("flash_attention",)) as mp:
+        for g in (grid, (1, 1)):
+            tr = Trainer(cfg, ParallelConfig(), shape, ocfg,
+                         mesh=make_local_mesh(*g, device=CARD))
+            (_, losses[g]), walls[g] = wall(lambda: tr.fit(
+                batches, steps, tr.state_from_jax(tree), log_every=0))
+            del tr
+            free_device_memory()
+    counts = mp.counts()
+    want = steps * cfg.n_layers * (grid[0] + 1) * (2 if cfg.remat else 1)
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times, not {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[grid],
+                                                   losses[(1, 1)]))
+    if rel > DIST_F32_RTOL:
+        raise AssertionError(f"the mesh's losses differ by {rel} relative")
+    return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers, "dtype": "float32",
+            "tf32": False, "mesh": list(grid), "batch": DIST_BATCH,
+            "seq": TRAIN_SEQ, "steps": steps,
+            "losses_mesh": losses[grid], "losses_one_rank": losses[(1, 1)],
+            "max_rel_diff": rel, "tolerance": DIST_F32_RTOL,
+            "wall_s": {str(list(g)): s for g, s in walls.items()},
+            "launches": counts}
+
+
+def phase_moe_ep(gen) -> dict:
+    """One MoE layer at qwen2-moe's widths in f32 (TF32 off), cf 1.25, on
+    EP_TOKENS tokens drawn around one shared vector (so that pairs drop):
+    moe_ffn_shardmap on a DIST_GRID mesh against moe_ffn run on each data
+    shard alone, within EP_RTOL of the largest |output|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import axes_ctx
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    mesh = make_local_mesh(*DIST_GRID, device=CARD)
+    p = moe.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((EP_TOKENS, cfg.d_model), generator=gen, device=CARD)         + torch.randn((cfg.d_model,), generator=gen, device=CARD)
+    shards = x.split(EP_TOKENS // DIST_GRID[0])
+
+    def ep():
+        with axes_ctx(mesh, "shardmap"):
+            return moe.moe_ffn(p, x, cfg)
+
+    def per_shard():
+        return torch.cat([moe.moe_ffn(p, s, cfg) for s in shards])
+    with torch.inference_mode():
+        got, want = ep(), per_shard()
+        err, scale = float((got - want).abs().max()),             float(want.abs().max())
+        if not err <= EP_RTOL * scale:
+            raise AssertionError(f"moe_ffn_shardmap is {err} from moe_ffn "
+                                 f"per data shard (largest |out| {scale})")
+        cap = moe.capacity(len(shards[0]), cfg)
+        dropped = 0
+        for s in shards:
+            idx, _ = moe.route(p, s, cfg)
+            _, pos = moe.dispatch_indices(idx, cfg.n_experts, cap)
+            dropped += int((pos >= cap).sum())
+        ms, plain_ms = time_ms(ep, reps=10), time_ms(per_shard, reps=10)
+    pairs = EP_TOKENS * cfg.top_k
+    return {"arch": MOE_ARCH, "dtype": "float32", "mesh": list(DIST_GRID),
+            "tokens": EP_TOKENS, "capacity_factor": cfg.capacity_factor,
+            "capacity_per_shard": cap, "experts_per_model_rank":
+            cfg.n_experts // DIST_GRID[1], "pairs": pairs,
+            "pairs_dropped": dropped, "dropped_share": dropped / pairs,
+            "max_abs_err": err, "max_abs_out": scale,
+            "tolerance": f"{EP_RTOL} x max |out|", "ms": ms,
+            "per_shard_moe_ffn_ms": plain_ms}
+
+
+def phase_compress(gen) -> dict:
+    """compressed_psum_mean over N_RANKS logical ranks of cuda:0 on
+    COMPRESS_SHAPE f32 tensors: the mean within COMPRESS_RTOL of the exact
+    mean's largest magnitude; each rank's x + e_old - e_new equal to its
+    dequantised value; a second call fed the errors within the bound."""
+    from repro_torch.core import logical_devices
+    from repro_torch.distributed import compression as cp
+    devices = logical_devices(N_RANKS, CARD)
+    xs = [torch.randn(COMPRESS_SHAPE, generator=gen, device=CARD)
+          for _ in devices]
+    exact = torch.stack(xs).mean(0)
+    top = float(exact.abs().max())
+    out, errs = {}, None
+    for call in (1, 2):
+        old = errs if errs is not None else [None] * len(xs)
+        means, errs = cp.compressed_psum_mean(xs, devices, errs)
+        rel = float((means[0] - exact).abs().max()) / top
+        if not rel <= COMPRESS_RTOL or not all(torch.equal(m, means[0])
+                                               for m in means):
+            raise AssertionError(f"call {call}: the compressed mean is {rel}"
+                                 f" from the exact mean")
+        for x, e0, e1 in zip(xs, old, errs):
+            xe = x + (e0 if e0 is not None else 0.0)
+            if not torch.equal(xe - e1, cp.dequantize_int8(
+                    *cp.quantize_int8(xe))):
+                raise AssertionError(f"call {call}: x + e_old - e_new is not"
+                                     f" the dequantised value")
+        out[f"call_{call}_rel_err"] = rel
+    ms = time_ms(lambda: cp.compressed_psum_mean(xs, devices, errs), reps=10)
+    plain_ms = time_ms(lambda: torch.stack(xs).mean(0), reps=10)
+    n = xs[0].numel()
+    return {"shape": list(COMPRESS_SHAPE), "ranks": N_RANKS, **out,
+            "tolerance": COMPRESS_RTOL, "ms": ms, "exact_mean_ms": plain_ms,
+            "wire_bytes_per_rank": cp.wire_bytes(xs[0]),
+            "f32_bytes_per_rank": 4 * n,
+            "wire_ratio": cp.wire_bytes(xs[0]) / (4 * n)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2334,6 +2679,16 @@ def main() -> int:
     emit("train_hybrid", **phase_train_hybrid(specs, records, gen))
     emit("train_cpu_gpu", **phase_train_cpu_gpu(specs, records))
     emit("train_task", **phase_train_task(specs, records))
+
+    free_device_memory()
+    emit("train_dist", **phase_train_dist(specs, records))
+    emit("train_dist_f32", **phase_train_dist_f32(specs, records))
+    with MainPath(specs, records, ()) as mp:
+        res = phase_moe_ep(gen)
+    emit("moe_ep", launches=mp.counts(), **res)
+    with MainPath(specs, records, ()) as mp:
+        res = phase_compress(gen)
+    emit("compress", launches=mp.counts(), **res)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -179,6 +179,26 @@ def jax_tree(named: dict, cfg) -> dict:
     return out
 
 
+def jax_layout(named: dict, cfg) -> dict:
+    """Where each port tensor sits in the JAX layout: "/"-joined JAX key
+    path -> (the leaf's shape, [(port name, the tensor's index into the
+    leaf's stacked axes)]), an unstacked leaf's one tensor at index ().
+    Stacking a leaf's tensors at their indices gives :func:`jax_tree`'s
+    leaf."""
+    out = {}
+    for name, t in named.items():
+        split = _split_name(cfg, name)
+        if split is None:
+            out[name.replace(".", "/")] = (tuple(t.shape), [(name, ())])
+            continue
+        stack, i, rest = split
+        lead = _stack_shape(cfg, stack, rest[0])
+        path = "/".join(_layer_path(cfg, stack, rest))
+        entry = out.setdefault(path, (lead + tuple(t.shape), []))
+        entry[1].append((name, _jax_index(cfg, rest[0], i)))
+    return out
+
+
 def named_from_jax(tree: dict, cfg) -> dict:
     """Inverse of :func:`jax_tree`: port name -> that layer's slice of the
     JAX leaf (numpy arrays or tensors, as given)."""

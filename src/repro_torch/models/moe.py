@@ -22,8 +22,14 @@ Reference behaviours kept exactly:
 * a dropped pair contributes 0; the shared experts' sigmoid gate is
   computed in f32 and cast.
 
-``moe_ffn_shardmap`` (local-expert EP under ``shard_map``) waits for the
-distributed layer (ROADMAP modules item 11).
+``moe_ffn_shardmap`` is the JAX package's local-expert EP, which it
+writes per model rank under ``shard_map``: each data shard's tokens route
+on their own, at the capacity of their own count; each model rank owns
+``E // tp`` experts and runs only the pairs routed to them (the others go
+to the drop row); the partial outputs are summed over the model ranks in
+rank order (``dataframe/comm.py::psum``), and the shared experts are
+added after.  ``moe_ffn`` switches to it under ``axes_ctx(mesh,
+"shardmap")``, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dataframe import comm
+from repro_torch.distributed.context import (current_mesh, current_moe_impl,
+                                             mesh_sizes)
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 
@@ -41,6 +50,8 @@ def expert_init(gen: torch.Generator, n: int, shape, dtype) -> torch.Tensor:
     leaf), one expert's slice at a time: the f32 temporary is one
     expert's, not the whole stack's."""
     out = torch.empty((n, *shape), dtype=dtype, device=gen.device)
+    if out.device.type == "meta":
+        return out
     std = 1.0 / math.sqrt(n * math.prod(shape[:-1]))
     for e in range(n):
         out[e] = (torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -102,33 +113,87 @@ def _shared(p, xt, out, cfg):
     return out + mlp_apply(p["shared"], xt) * sg.to(out.dtype)
 
 
+def _experts(xt, slot, gates, wg, wi, wo, cap):
+    """Each pair's expert output, weighted by its gate and summed over each
+    token's k pairs: pair i (token i // k) goes to row ``slot[i]`` of a
+    flat ``(E·cap + 1, d)`` buffer for the E experts of ``wg``/``wi``/``wo``,
+    whose last row takes the dropped pairs and reads back zero."""
+    T, d = xt.shape
+    k, E = gates.shape[1], wg.shape[0]
+    # scatter: pair i carries token i // k (its k copies side by side)
+    pairs_x = xt[:, None].expand(T, k, d).reshape(T * k, d)
+    ebuf = xt.new_zeros((E * cap + 1, d)).index_copy(0, slot, pairs_x)
+    ebuf = ebuf[:E * cap].view(E, cap, d)
+
+    g = F.silu(torch.bmm(ebuf, wg))
+    u = torch.bmm(ebuf, wi)
+    eout = torch.bmm(g * u, wo).reshape(E * cap, d)
+
+    # combine: gather each pair's expert output (dropped -> the zero row),
+    # weight by its gate, sum each token's k pairs
+    pair_out = torch.cat([eout, eout.new_zeros((1, d))]).index_select(0, slot)
+    return (pair_out.view(T, k, d)
+            * gates[..., None].to(pair_out.dtype)).sum(dim=1)
+
+
 def moe_ffn(p, x, cfg):
     """x (..., d) -> (..., d).  Flattens all leading dims into tokens."""
+    mesh = current_mesh()
+    if current_moe_impl() == "shardmap" and mesh is not None:
+        return moe_ffn_shardmap(p, x, cfg, mesh)
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
-    T = xt.shape[0]
-    E, k = cfg.n_experts, cfg.top_k
-    C = capacity(T, cfg)
+    E = cfg.n_experts
+    C = capacity(xt.shape[0], cfg)
 
     idx, gates = route(p, xt, cfg)                        # (T, k)
     e_of_pair, pos_of_pair = dispatch_indices(idx, E, C)  # (T*k,)
     # each pair's row of the flat (E·C + 1, d) buffer; E·C takes the drops
     slot = torch.where(pos_of_pair < C, e_of_pair * C + pos_of_pair, E * C)
+    out = _experts(xt, slot, gates, p["wg"], p["wi"], p["wo"], C)
+    return _shared(p, xt, out, cfg).reshape(*lead, d)
 
-    # scatter: pair i carries token i // k (its k copies side by side)
-    pairs_x = xt[:, None].expand(T, k, d).reshape(T * k, d)
-    ebuf = xt.new_zeros((E * C + 1, d)).index_copy(0, slot, pairs_x)
-    ebuf = ebuf[:E * C].view(E, C, d)
 
-    g = F.silu(torch.bmm(ebuf, p["wg"]))
-    u = torch.bmm(ebuf, p["wi"])
-    eout = torch.bmm(g * u, p["wo"]).reshape(E * C, d)
-
-    # combine: gather each pair's expert output (dropped -> the zero row),
-    # weight by its gate, sum each token's k pairs
-    pair_out = torch.cat([eout, eout.new_zeros((1, d))]).index_select(0, slot)
-    out = (pair_out.view(T, k, d)
-           * gates[..., None].to(pair_out.dtype)).sum(dim=1)
+def moe_ffn_shardmap(p, x, cfg, mesh):
+    """Local-expert EP over ``mesh``'s ranks (a ``Communicator``): the
+    tokens split into one contiguous shard per data rank (the ``pod`` and
+    ``data`` axes), each routed at ``capacity(t_loc)``; model rank m runs
+    experts ``[m·el, (m+1)·el)``, ``el = E // tp``, on views of the
+    weights, foreign experts' pairs dropped; one ``psum`` over the model
+    ranks combines the partial outputs.  x (..., d) -> (..., d)."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    E = cfg.n_experts
+    sizes = mesh_sizes(mesh)
+    dpn = 1
+    for a in ("pod", "data"):
+        dpn *= sizes.get(a, 1)
+    tpn = sizes.get("model", 1)
+    if E % tpn or xt.shape[0] % dpn:
+        raise ValueError(f"{E} experts and {xt.shape[0]} tokens on "
+                         f"{dpn} data x {tpn} model ranks: shard_map needs "
+                         f"both to divide")
+    el = E // tpn
+    t_loc = xt.shape[0] // dpn
+    cap = capacity(t_loc, cfg)
+    outs = []
+    for xl in xt.split(t_loc):
+        idx, gates = route(p, xl, cfg)
+        e_flat = idx.reshape(-1)
+        partial = []
+        for m in range(tpn):
+            lo = m * el
+            # global expert ids -> local slots; foreign experts -> slot el
+            local_e = torch.where((e_flat >= lo) & (e_flat < lo + el),
+                                  e_flat - lo, el)
+            _, pos = dispatch_indices(local_e.reshape(-1, 1), el + 1, cap)
+            slot = torch.where((local_e < el) & (pos < cap),
+                               local_e * cap + pos, el * cap)
+            partial.append(_experts(
+                xl, slot, gates, p["wg"][lo:lo + el], p["wi"][lo:lo + el],
+                p["wo"][lo:lo + el], cap))
+        outs.append(comm.psum(partial, [xl.device])[0])
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
     return _shared(p, xt, out, cfg).reshape(*lead, d)
 
 

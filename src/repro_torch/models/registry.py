@@ -40,6 +40,39 @@ def get_model(cfg) -> ModelApi:
                     mod.decode_step, mod.cache_init)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: the initialisers, which
+    draw on ``gen.device``, then make shapes and dtypes and draw nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def meta_model(cfg):
+    """``cfg``'s model with its parameters on ``meta``: the shapes and
+    dtypes of every tensor, at any width, with no storage."""
+    return get_model(cfg).init(_MetaGenerator(), cfg)
+
+
+def eval_params_shape(cfg) -> dict:
+    """The parameters' tree in the JAX layout on ``meta`` tensors, the
+    JAX package's ``registry.eval_params_shape``."""
+    from repro_torch.models.convert import jax_tree
+    return jax_tree(dict(meta_model(cfg).named_parameters()), cfg)
+
+
+def eval_cache_shape(cfg, batch: int, smax: int) -> dict:
+    """The serving cache's tree in the JAX layout on ``meta`` tensors, the
+    JAX package's ``registry.eval_cache_shape``: the hybrid's Mamba2
+    states nest under ``ssm``, as its JAX cache keeps them."""
+    cache = get_model(cfg).cache_init(cfg, batch, smax, device="meta")
+    if cfg.family == "hybrid":
+        cache = dict(cache)
+        cache["ssm"] = {k: cache.pop(k) for k in ("conv", "h")}
+    return cache
+
+
 
 # ----------------------------------------------------------------------------
 # batch builders (the JAX package's, with torch dtypes)

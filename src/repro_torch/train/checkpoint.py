@@ -30,8 +30,12 @@ binds one per ``(task lineage, attempt, part)`` and hands it to payloads as
 speculative twin resumes from whatever step the doomed primary durably
 completed.
 
-Restoring onto another sharding (the reference's ``mesh``/``specs``) waits
-for the distributed layer (ROADMAP modules item 11).
+``restore(..., mesh=, specs=)`` is the elastic re-shard: each leaf that
+``specs`` names is loaded whole and placed on the mesh's ranks by its spec
+(``distributed/sharding.py::shard``), a list of per-rank blocks in the
+restored tree, as the reference ``device_put``s each leaf with its
+``NamedSharding``.  A checkpoint written on one mesh restores onto any
+other: it holds whole leaves.
 """
 from __future__ import annotations
 
@@ -99,11 +103,12 @@ def _rebuild(like, loaded: dict, path=()):
     return loaded["/".join(path)]
 
 
-def host_array(x) -> np.ndarray:
-    """A host copy of a leaf as numpy; a bfloat16 tensor as its raw words
-    (dtype ``V2``, the bytes of an ``ml_dtypes`` bfloat16 array)."""
+def host_array(x, copy: bool = True) -> np.ndarray:
+    """A host copy of a leaf as numpy (``copy=False``: a host tensor's own
+    memory); a bfloat16 tensor as its raw words (dtype ``V2``, the bytes of
+    an ``ml_dtypes`` bfloat16 array)."""
     if isinstance(x, torch.Tensor):
-        t = x.detach().to("cpu", copy=True)
+        t = x.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
@@ -113,13 +118,16 @@ def host_array(x) -> np.ndarray:
 def tensor_from_host(a: np.ndarray, dtype_name: str | None = None,
                      device=None) -> torch.Tensor:
     """Inverse of :func:`host_array`: 2-byte void words (or ``dtype_name``
-    ``"bfloat16"``) become a bfloat16 tensor."""
+    ``"bfloat16"``) become a bfloat16 tensor.  The tensor is a copy, made
+    on ``device`` in one step (no host copy first for a device)."""
     a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a)
     if dtype_name == BF16 or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
-        return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.int16).copy()).view(
-                torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a)).to(device)
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device, copy=True)
 
 
 def _dtype_name(a: np.ndarray) -> str:
@@ -179,12 +187,13 @@ def _manifest_ok(d: Path, step: int | None = None) -> dict | None:
 
 
 def save(ckpt_dir, step: int, tree, *, async_: bool = True):
-    """Write the tree; returns a join()-able handle (None when sync).  The
-    host copies are taken before this returns."""
+    """Write the tree; returns a join()-able handle (None when sync).  An
+    asynchronous save takes its host copies before this returns; a
+    synchronous one writes host tensors from their own memory."""
     _check_tree(tree)
     d = Path(ckpt_dir) / STEP_FMT.format(step)
     d.mkdir(parents=True, exist_ok=True)
-    host = {k: host_array(v) for k, v in _flatten(tree).items()}
+    host = {k: host_array(v, copy=async_) for k, v in _flatten(tree).items()}
 
     def _write():
         manifest = {"step": step, "leaves": {}}
@@ -256,11 +265,15 @@ def restore(ckpt_dir, step: int, like, *, mesh=None, specs=None,
             device=None):
     """Load into the structure of ``like`` (a tree of tensors — meta tensors
     will do — numpy arrays or scalars), each leaf cast to its like's dtype;
-    tensors land on ``device`` (default: each like's device)."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh with sharding specs (elastic re-shard) "
-            "waits for the distributed layer (ROADMAP modules item 11)")
+    tensors land on ``device`` (default: each like's device).  With
+    ``mesh`` (a ``Communicator``) and ``specs`` (a tree of specs over
+    ``like``'s dicts; None for a leaf left unplaced), each leaf with a spec
+    becomes the list of its per-rank blocks on the ranks' devices."""
+    flat_specs = {}
+    if mesh is not None and specs is not None:
+        from repro_torch.distributed.sharding import flat_paths
+        flat_specs = {k: v for k, v in flat_paths(specs).items()
+                      if v is not None}
     d = Path(ckpt_dir) / STEP_FMT.format(step)
     manifest = _manifest_ok(d, step)
     if manifest is None:
@@ -276,8 +289,16 @@ def restore(ckpt_dir, step: int, like, *, mesh=None, specs=None,
     loaded = {}
     for k, meta in manifest["leaves"].items():
         if k in flat_like:
-            loaded[k] = _as_like(np.load(d / meta["file"]), meta["dtype"],
-                                 flat_like[k], device)
+            if k not in flat_specs:
+                loaded[k] = _as_like(np.load(d / meta["file"]),
+                                     meta["dtype"], flat_like[k], device)
+                continue
+            # a sharded leaf lands whole on rank 0's device, then is cut
+            from repro_torch.distributed.sharding import shard
+            whole = _as_like(np.load(d / meta["file"]), meta["dtype"],
+                             flat_like[k], device if device is not None
+                             else mesh.device_of(0))
+            loaded[k] = shard(torch.as_tensor(whole), flat_specs[k], mesh, k)
     return _rebuild(like, loaded)
 
 

@@ -71,14 +71,17 @@ def global_norm(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: dict, opt_state: dict, params: dict,
-                 cfg: OptimizerConfig, decay=None):
+                 cfg: OptimizerConfig, decay=None, gnorm=None):
     """One AdamW step, in place on ``params`` and ``opt_state``.  ``decay``:
     the names that take weight decay (default: the tensors of ``ndim >=
-    2``, the reference's rule on its own layout).  Returns ``(params,
-    opt_state, metrics)`` with ``lr`` and ``grad_norm`` as 0-d tensors."""
+    2``, the reference's rule on its own layout).  ``gnorm``: the norm to
+    clip by, where ``grads`` is one rank's shard of a larger tree (default:
+    ``grads``' own).  Returns ``(params, opt_state, metrics)`` with ``lr``
+    and ``grad_norm`` as 0-d tensors."""
     count = opt_state["count"] + 1
     lr = cosine_schedule(cfg, count)
-    gnorm = global_norm(grads.values())
+    if gnorm is None:
+        gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     c = count.to(torch.float32)

@@ -166,10 +166,21 @@ def test_context_reads_across_attempts_writes_only_its_own(tmp_path):
 
 
 def test_mesh_restore_waits_for_the_distributed_layer(tmp_path):
-    save(tmp_path, 0, {"w": torch.zeros(2)}, async_=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        restore(tmp_path, 0, {"w": torch.zeros(2)}, mesh=object(),
-                specs={"w": None})
+    """The elastic re-shard, which waited for the distributed layer: a
+    leaf with a spec restores as its per-rank blocks on the mesh, a leaf
+    with the spec () as a copy on every rank, a leaf whose spec is None
+    whole, as without a mesh."""
+    from repro_torch.launch.mesh import make_local_mesh
+    save(tmp_path, 0, {"w": torch.arange(4.), "b": torch.ones(2)},
+         async_=False)
+    like = {"w": torch.zeros(4), "b": torch.zeros(2)}
+    mesh = make_local_mesh(2, 1, device="cpu")
+    got = restore(tmp_path, 0, like, mesh=mesh,
+                  specs={"w": ("data",), "b": None})
+    assert [b.tolist() for b in got["w"]] == [[0., 1.], [2., 3.]]
+    assert torch.equal(got["b"], torch.ones(2))
+    got = restore(tmp_path, 0, like, mesh=mesh, specs={"w": (), "b": ()})
+    assert [b.tolist() for b in got["w"]] == [[0., 1., 2., 3.]] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -1079,3 +1079,73 @@ def test_serve_lm_serves_zamba2_on_the_card(cuda):
     serve_lm.main(["--device", str(cuda), "--arch", "zamba2-7b"])
     assert fa.flash_attention.launches > before[0]
     assert ssm_ops.ssm_scan.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer: a mesh of logical ranks on cuda:0
+# ---------------------------------------------------------------------------
+def test_sharded_step_on_the_card_matches_the_cpu(cuda):
+    """One sharded f32 step of reduced qwen3-8b (2 layers) on a (2, 2) mesh
+    of logical ranks of cuda:0 (TF32 off) and of the CPU, from the same
+    parameters and batch: the loss within 1e-5 relative and every
+    parameter leaf within 1e-5 of its largest magnitude; the card's step
+    launches flash_attention once a layer a data rank a forward (twice
+    under remat)."""
+    import dataclasses
+    from repro_torch.configs import (ParallelConfig, ShapeConfig, get_config,
+                                     reduced)
+    from repro_torch.distributed.sharding import flat_paths
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_to_jax
+    from repro_torch.train.data import SyntheticCorpus
+    from repro_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("qwen3-8b")), n_layers=2)
+    shape = ShapeConfig("t", "train", 32, 8)
+    host = params_to_jax(get_model(cfg).init(
+        torch.Generator().manual_seed(0), cfg))
+    batches = list(SyntheticCorpus(cfg.vocab_size, 0).batches(8, 32, 1))
+    out = {}
+    for dev in (cuda, "cpu"):
+        before = fa.flash_attention.launches
+        tr = Trainer(cfg, ParallelConfig(), shape,
+                     mesh=make_local_mesh(2, 2, device=dev))
+        state, losses = tr.fit(batches, 1, tr.state_from_jax(host),
+                               log_every=0)
+        if dev == cuda:
+            assert fa.flash_attention.launches - before == \
+                2 * cfg.n_layers * (2 if cfg.remat else 1)
+        out[str(dev)] = (losses, flat_paths(tr.state_tree(state)["params"]))
+    np.testing.assert_allclose(out["cuda:0"][0], out["cpu"][0], rtol=1e-5)
+    for k, want in out["cpu"][1].items():
+        got = out["cuda:0"][1][k]
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max()), k
+
+
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2)])
+def test_moe_ffn_shardmap_on_the_card_matches_moe_ffn_per_shard(cuda, grid):
+    """Local-expert EP on a mesh of logical ranks of cuda:0 (reduced
+    qwen2-moe, f32, TF32 off, tokens around one shared vector so that
+    pairs drop): within 1e-5 of the largest |output| of moe_ffn run on
+    each data shard alone."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.context import axes_ctx
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_config("qwen2-moe-a2.7b")),
+                              capacity_factor=1.25)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(gen, cfg, torch.float32)
+    x = torch.randn((512, cfg.d_model), generator=gen, device=cuda) + \
+        torch.randn((cfg.d_model,), generator=gen, device=cuda)
+    with axes_ctx(make_local_mesh(*grid, device=cuda), "shardmap"):
+        got = moe.moe_ffn(p, x, cfg)
+    want = torch.cat([moe.moe_ffn(p, s, cfg)
+                      for s in x.split(512 // grid[0])])
+    assert float((got - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
