@@ -167,15 +167,34 @@ Phases, one JSON line each:
             magnitude), each rank's x + e_old - e_new equal to its
             dequantised value, a second call fed the errors within the
             same bound; ms and wire bytes against f32
+  serve_dist   qwen3-8b whole at its published widths in bf16 (36
+            layers, 8.19 B) sharded by shard_model onto a (2, 2) mesh of 4
+            logical ranks of cuda:0: make_prefill_step on 4 prompts of 2048
+            tokens (2 rows a data rank; a cell of 2080 positions, so that
+            the decode steps fit), then 32 greedy steps of
+            make_decode_step on its cache blocks; prefill, decode and
+            gather ms, peak memory under 80 GB, flash_attention 72 times a
+            prefill step (36 layers x 2 data ranks), each rank's bytes of
+            parameters, cache and batch equal to the dry run's
+            (launch/dryrun.py on meta ranks, run inside the phase) and its
+            predicted memory beside the measured peak
+  serve_dist_f32  qwen3-8b's widths and qwen2-moe-a2.7b's (moe_impl
+            "shardmap", capacity factor n_experts / top_k: no pair drops,
+            its cache in the superblock layout), 2 layers each, float32
+            (TF32 off), 4 x 2048 tokens and 8 greedy steps on the (2, 2)
+            mesh against one rank's prefill and decode_step from the same
+            weights: tokens equal, logits within 1e-5 of the largest
+            |logit| at every step
 
 The main-path phases (dist, pipeline, shuffle, process, the thirteen
-serve phases, sort, the nine train phases and the four distributed ones)
+serve phases, sort, the nine train phases and the six distributed ones)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (the bf16 serve phases and
 serve_llama4: exactly once per layer per prefill, whisper's decoder layers
 twice, zamba2's attention once a group; the train phases: once per layer
 per forward, twice under remat; train_dist: once per layer per forward
-per data rank, twice under remat; moe_ep and compress run no kernel).
+per data rank, twice under remat; serve_dist: once per layer per data
+rank a prefill step, none in decode; moe_ep and compress run no kernel).
 Then
 come the kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and last
@@ -246,6 +265,11 @@ DIST_RESTORE_GRIDS = ((4, 1), (1, 4), (1, 1))
 DIST_F32_LAYERS, DIST_F32_STEPS, DIST_F32_RTOL = 2, 3, 1e-5
 EP_TOKENS, EP_RTOL = 2 * 2048, 1e-5         # moe_ep on DIST_GRID
 COMPRESS_SHAPE, COMPRESS_RTOL = (4096, 12288), 0.02
+# serve_dist: prompts of 2048 tokens a row, 2 rows a data rank, in a cell
+# of 2048 + 32 positions, so that the 32 decode steps fit its cache
+SERVE_DIST_ROWS, SERVE_DIST_PROMPT, SERVE_DIST_NEW = 4, 2048, 32
+SERVE_DIST_PREFILLS = 3                     # timed prefill steps
+SERVE_DIST_F32_NEW, SERVE_DIST_F32_RTOL = 8, 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (same)
 # exponentials: 16 a clock per SM (CUDA programming guide, compute
@@ -633,6 +657,15 @@ def _attention_spec():
             # (f32) and train_hybrid's forward (1 x 2048, among the first)
             *serve_shapes(zamba, SERVE_PROMPTS),
             *f32_shapes(zamba),
+            # serve_dist: each data rank's prefill of SERVE_DIST_ROWS /
+            # DIST_GRID[0] rows (bf16, and serve_dist_f32's qwen3-8b and
+            # qwen2-moe in f32), and one rank's f32 prefill of all the rows
+            *((b, h, kh, SERVE_DIST_PROMPT, SERVE_DIST_PROMPT, 128, dtype,
+               True)
+              for h, kh, dtype in ((*qwen3[:2], bf16), (*qwen3[:2], f32),
+                                   (16, 16, f32))
+              for b in {SERVE_DIST_ROWS // DIST_GRID[0], SERVE_DIST_ROWS}
+              if dtype == f32 or b < SERVE_DIST_ROWS),
         ))),
         # the dense prefill's shape (the summary line's), then a 2048-token
         # prefill of qwen2-moe and of llama4-maverick, internvl2-1b's
@@ -2582,6 +2615,252 @@ def phase_compress(gen) -> dict:
             "wire_ratio": cp.wire_bytes(xs[0]) / (4 * n)}
 
 
+def _nbytes(blocks: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in blocks.values())
+
+
+def _dist_shapes() -> dict:
+    """serve_dist's prefill and decode cells: SERVE_DIST_ROWS rows of
+    SERVE_DIST_PROMPT + SERVE_DIST_NEW positions."""
+    from repro_torch.configs import ShapeConfig
+    n = SERVE_DIST_PROMPT + SERVE_DIST_NEW
+    return {k: ShapeConfig("serve_dist", k, n, SERVE_DIST_ROWS)
+            for k in ("prefill", "decode")}
+
+
+def _dry_runs(cfg, shapes: dict) -> dict:
+    """The dry run's record of each cell on a DIST_GRID mesh of ``meta``
+    ranks (launch/dryrun.py)."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    meta = make_local_mesh(*DIST_GRID, device="meta")
+    return {k: run_cell(SERVE_ARCH, s, cfg=cfg, mesh=meta, verbose=False)
+            for k, s in shapes.items()}
+
+
+def _greedy_feed(logits, info, mesh, position: int) -> dict:
+    """The next decode batch: each row's argmax of the logits unsharded
+    from the ranks' blocks, written at ``position``."""
+    from repro_torch.distributed.sharding import unshard
+    whole = unshard(logits, info["logit_spec"], mesh)
+    return {"tokens": whole.argmax(-1, keepdim=True).to(torch.int32),
+            "positions": torch.full((whole.shape[0],), position,
+                                    dtype=torch.int32, device=whole.device)}
+
+
+def phase_serve_dist(specs, records):
+    """qwen3-8b whole at its published widths in bf16, sharded by
+    shard_model onto a DIST_GRID mesh of logical ranks of cuda:0:
+    make_prefill_step on SERVE_DIST_ROWS prompts of SERVE_DIST_PROMPT
+    tokens (timed SERVE_DIST_PREFILLS times, then once profiled), then
+    SERVE_DIST_NEW greedy steps of make_decode_step on its blocks (the
+    last one profiled).  Each rank's bytes equal the
+    dry run's for the same cells, flash_attention once per layer per data
+    rank a prefill step, peak under 80 GB."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.distributed.steps import (gather_model,
+                                               make_decode_step,
+                                               make_prefill_step,
+                                               shard_model)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (make_concrete_batch,
+                                    prefill_batch_shapes, registry)
+    cfg = get_config(SERVE_ARCH)
+    shapes = _dist_shapes()
+    dry = _dry_runs(cfg, shapes)
+    mesh = make_local_mesh(*DIST_GRID, device=CARD)
+    prefill = make_prefill_step(cfg, mesh, ParallelConfig(),
+                                shapes["prefill"])
+    decode = make_decode_step(cfg, mesh, ParallelConfig(), shapes["decode"])
+    free_device_memory()
+    model = serve_model(cfg)
+    params = shard_model(model, prefill.info, mesh)
+    del model
+    free_device_memory()
+    batch = make_concrete_batch(prefill_batch_shapes(
+        cfg, SERVE_DIST_ROWS, SERVE_DIST_PROMPT), np.random.default_rng(0),
+        cfg.vocab_size, CARD)
+    per_step = cfg.n_layers * DIST_GRID[0]
+    torch.cuda.reset_peak_memory_stats()
+    with MainPath(specs, records, ("flash_attention",)) as mp:
+        prefill_s = []
+        for _ in range(SERVE_DIST_PREFILLS):
+            cache = logits = None
+            (cache, logits), s = wall(lambda: prefill.fn(params, batch))
+            prefill_s.append(s)
+        # one more prefill step under the profiler (its results dropped)
+        prof_prefill = profile(lambda: prefill.fn(params, batch))
+        prefill_launches = mp.counts()["flash_attention"]
+        decode_s, tokens, out = [], [], {}
+        for t in range(SERVE_DIST_NEW):
+            feed = _greedy_feed(logits, prefill.info, mesh,
+                                SERVE_DIST_PROMPT + t)
+            tokens.append(feed["tokens"][:, 0].tolist())
+            if t < SERVE_DIST_NEW - 1:
+                (logits, cache), s = wall(lambda: decode.fn(params, feed,
+                                                            cache))
+                decode_s.append(s)
+            else:                     # the last step under the profiler
+                prof_decode = profile(lambda: out.update(
+                    step=decode.fn(params, feed, cache)))
+                logits, cache = out.pop("step")
+    counts = mp.counts()
+    peak = torch.cuda.max_memory_allocated()
+    if prefill_launches != per_step * (SERVE_DIST_PREFILLS + 1) or \
+            counts["flash_attention"] != prefill_launches:
+        raise AssertionError(f"flash_attention launched {prefill_launches} "
+                             f"times in {SERVE_DIST_PREFILLS + 1} prefill "
+                             f"steps of {per_step}, "
+                             f"{counts['flash_attention']} in all")
+    whole = torch.stack([torch.as_tensor(x) for x in tokens])
+    if not (whole.min() >= 0 and whole.max() < cfg.vocab_size) or \
+            not all(torch.isfinite(x).all() for x in logits):
+        raise AssertionError("serve_dist: logits not finite or tokens out "
+                             "of the vocabulary")
+    if peak >= 80e9:
+        raise AssertionError(f"serve_dist: peak {peak / 1e9} GB")
+    # each rank's bytes against the dry run's
+    ranks = [{"params": _nbytes(p), "cache": _nbytes(c),
+              "batch": _nbytes({k: v.chunk(DIST_GRID[0])[0]
+                                for k, v in feed.items()})}
+             for p, c in zip(params, cache)]
+    logit_bytes = [x.numel() * x.element_size() for x in logits]
+    dp, dd = dry["prefill"]["memory"], dry["decode"]["memory"]
+    for r, lb in zip(ranks, logit_bytes):
+        if r["params"] + r["cache"] + r["batch"] != dd["argument_bytes"] or \
+                r["params"] != dp["argument_parts"]["params"] or \
+                r["cache"] + lb != dp["output_bytes"]:
+            raise AssertionError(f"rank bytes {r} (logits {lb}), the dry run"
+                                 f" {dd['argument_parts']} and "
+                                 f"{dp['output_parts']}")
+    # the gather alone: a working model filled from every rank's blocks
+    working = registry.meta_model(cfg).to_empty(device=CARD)
+    gather_s = [wall(lambda: gather_model(working, params,
+                                          prefill.info["layout"],
+                                          prefill.info["pspecs"], mesh))[1]
+                for _ in range(3)]
+    del working, params, cache, logits
+    free_device_memory()
+    temp = max(dp["temp_bytes"], dd["temp_bytes"])
+    return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "mesh": list(DIST_GRID), "ranks_on": CARD,
+            "rows": SERVE_DIST_ROWS, "prompt": SERVE_DIST_PROMPT,
+            "cell_positions": shapes["decode"].seq_len,
+            "new_tokens": SERVE_DIST_NEW,
+            "prefill_ms": statistics.median(prefill_s) * 1e3,
+            "prefill_ms_each": [x * 1e3 for x in prefill_s],
+            "decode_ms": statistics.median(decode_s) * 1e3,
+            "decode_ms_first_last": [decode_s[0] * 1e3, decode_s[-1] * 1e3],
+            "gather_ms": statistics.median(gather_s) * 1e3,
+            "peak_gb": peak / 1e9,
+            "rank_bytes": ranks[0], "rank_bytes_equal_dry_run": True,
+            "dry_run": {k: {"argument_bytes": v["memory"]["argument_bytes"],
+                            "working_bytes": v["memory"]["working_bytes"],
+                            "temp_bytes": v["memory"]["temp_bytes"],
+                            "flops_per_data_rank": v["flops_per_data_rank"],
+                            "all_gather_bytes": v["collectives"]["per_op"][
+                                "all-gather"]["traffic_bytes"],
+                            "pass_s": v["timing"]["pass_s"]}
+                        for k, v in dry.items()},
+            "predicted_gb_per_device": (dd["argument_bytes"]
+                                        + dd["working_bytes"] + temp) / 1e9,
+            "predicted_gb_this_card": (mesh.size * dd["argument_bytes"]
+                                       + dd["working_bytes"] + temp) / 1e9,
+            "flash_attention_launches_per_prefill": per_step,
+            "profile_prefill_step": prof_prefill,
+            "profile_decode_step": prof_decode,
+            "tokens_row0": whole[:, 0].tolist(), "launches": counts}
+
+
+def _dist_against_one_rank(cfg, parallel, gen_seed: int) -> dict:
+    """``cfg`` in f32 on a DIST_GRID mesh and on one rank from the same
+    weights and prompts: SERVE_DIST_F32_NEW greedy steps after the
+    prefill; tokens equal, logits within SERVE_DIST_F32_RTOL of the
+    largest |logit| at every step."""
+    from repro_torch.distributed.sharding import unshard
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step,
+                                               shard_model)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (get_model, make_concrete_batch,
+                                    prefill_batch_shapes)
+    shapes = _dist_shapes()
+    mesh = make_local_mesh(*DIST_GRID, device=CARD)
+    (prefill, decode), (prefill1, decode1) = (
+        (make_prefill_step(cfg, m, parallel, shapes["prefill"]),
+         make_decode_step(cfg, m, parallel, shapes["decode"]))
+        for m in (mesh, None))
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(gen_seed)
+    model = get_model(cfg).init(gen, cfg)
+    params = shard_model(model, prefill.info, mesh)
+    batch = make_concrete_batch(prefill_batch_shapes(
+        cfg, SERVE_DIST_ROWS, SERVE_DIST_PROMPT), np.random.default_rng(1),
+        cfg.vocab_size, CARD)
+    cache, logits = prefill.fn(params, batch)
+    one_cache, one = prefill1.fn(model, batch)
+    worst, tokens = 0.0, []
+    for t in range(SERVE_DIST_F32_NEW + 1):
+        whole = unshard(logits, prefill.info["logit_spec"], mesh)
+        worst = max(worst, float((whole - one).abs().max())
+                    / float(one.abs().max()))
+        if not torch.equal(whole.argmax(-1), one.argmax(-1)):
+            raise AssertionError(f"step {t}: the mesh's tokens "
+                                 f"{whole.argmax(-1).tolist()} are not one "
+                                 f"rank's {one.argmax(-1).tolist()}")
+        tokens.append(one.argmax(-1).tolist())
+        if t == SERVE_DIST_F32_NEW:
+            break
+        feed = _greedy_feed(logits, prefill.info, mesh,
+                            SERVE_DIST_PROMPT + t)
+        logits, cache = decode.fn(params, feed, cache)
+        one, one_cache = decode1.fn(model, feed, one_cache)
+    if worst > SERVE_DIST_F32_RTOL:
+        raise AssertionError(f"the mesh's logits are {worst} of the largest "
+                             f"|logit| from one rank's")
+    del model, params, cache, one_cache
+    free_device_memory()
+    return {"max_rel_diff": worst, "tokens_equal": True,
+            "tokens_row0": [t[0] for t in tokens]}
+
+
+def phase_serve_dist_f32(specs, records):
+    """qwen3-8b's widths at 2 layers in float32 (TF32 off) through the
+    sharded prefill and decode steps on a DIST_GRID mesh against one
+    rank's prefill and decode_step from the same weights; then
+    qwen2-moe-a2.7b at 2 layers under moe_impl="shardmap" at the capacity
+    factor n_experts / top_k (no pair drops) the same way, its KV cache in
+    the superblock layout."""
+    import dataclasses
+    from repro_torch.configs import ParallelConfig, get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dense = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2,
+                                dtype="float32")
+    moe = get_config(MOE_ARCH)
+    moe = dataclasses.replace(moe, n_layers=2, dtype="float32",
+                              capacity_factor=moe.n_experts / moe.top_k)
+    free_device_memory()
+    with MainPath(specs, records, ("flash_attention",)) as mp:
+        res = {"dense": _dist_against_one_rank(dense, ParallelConfig(), 1),
+               "moe_shardmap": _dist_against_one_rank(
+                   moe, ParallelConfig(moe_impl="shardmap"), 2)}
+    counts = mp.counts()
+    # each model's prefill: once a layer on each of 2 data ranks and once
+    # a layer on one rank
+    want = 2 * (DIST_GRID[0] + 1) * 2
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launched "
+                             f"{counts['flash_attention']} times, not {want}")
+    return {"archs": [SERVE_ARCH, MOE_ARCH], "n_layers": 2,
+            "dtype": "float32", "tf32": False, "mesh": list(DIST_GRID),
+            "rows": SERVE_DIST_ROWS, "prompt": SERVE_DIST_PROMPT,
+            "new_tokens": SERVE_DIST_F32_NEW,
+            "moe_capacity_factor": moe.capacity_factor,
+            "tolerance": f"{SERVE_DIST_F32_RTOL} x max |logit|", **res,
+            "launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2689,6 +2968,8 @@ def main() -> int:
     with MainPath(specs, records, ()) as mp:
         res = phase_compress(gen)
     emit("compress", launches=mp.counts(), **res)
+    emit("serve_dist", **phase_serve_dist(specs, records))
+    emit("serve_dist_f32", **phase_serve_dist_f32(specs, records))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)

@@ -1,3 +1,4 @@
-"""Step builders.  The named-sharding rules of the JAX package's
-``repro.distributed`` wait for ROADMAP modules item 11; the train step
-runs on one device."""
+"""The distributed layer: the ambient mesh (``context.py``), the sharding
+rules and placement (``sharding.py``), int8 compressed means
+(``compression.py``) and the train, prefill and decode steps
+(``steps.py``)."""

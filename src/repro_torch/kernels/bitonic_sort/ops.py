@@ -38,7 +38,8 @@ reads the caller's keys and payload (or makes ``arange(n)``) and writes the
 pad itself, into fresh outputs; the caller's tensors are never written.
 
 A CUDA tensor goes through the kernel (int32 or float32 keys) or the call
-raises; a CPU tensor of any real dtype goes through the plain version.
+raises; a CPU (or ``meta``) tensor of any real dtype goes through the plain
+version.
 """
 from __future__ import annotations
 
@@ -332,10 +333,11 @@ def _padded(keys: torch.Tensor, payload: torch.Tensor | None):
 def bitonic_sort(keys: torch.Tensor, payload: torch.Tensor | None = None):
     """keys (rows, n); optional payload (rows, n) int32.  Returns
     (sorted_keys, payload_perm), ascending per row, trimmed to n."""
-    if not isinstance(keys, torch.Tensor) or keys.device.type == "cpu":
+    if not isinstance(keys, torch.Tensor) or keys.device.type in ("cpu",
+                                                                  "meta"):
         return bitonic_sort_plain(keys, payload)
     if keys.device.type != "cuda":
-        raise ValueError(f"bitonic_sort runs on cuda or cpu, not "
+        raise ValueError(f"bitonic_sort runs on cuda, cpu or meta, not "
                          f"{keys.device}")
     if keys.dtype not in _DTYPES:
         raise ValueError(f"keys are {keys.dtype}; the kernel takes int32 or "

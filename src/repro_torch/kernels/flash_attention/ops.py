@@ -17,8 +17,9 @@ The causal mask is the TPU kernel's, ``cols <= rows``, top-left aligned.
 The oracle (``ref.attention_ref``) aligns the suffixes (offset Sk - Sq);
 the two agree only when Sq == Sk, so a causal call with Sq != Sk raises.
 
-A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
-through :func:`flash_attention_plain`, the same function in plain PyTorch.
+A CUDA tensor goes through the kernel or the call raises; a CPU or
+``meta`` tensor goes through :func:`flash_attention_plain`, the same
+function in plain PyTorch.
 
 Training goes through :class:`FlashAttention`, an autograd Function whose
 forward is the wrapper (the kernel, on the card) and whose backward
@@ -123,10 +124,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
     h // (H // K).  Returns (B, Sq, H, hd) in q's dtype."""
     _check(q, k, v, causal)
     dev = q.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal)
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{dev}")
     if q.shape[0] == 0 or q.shape[1] == 0 or q.shape[2] == 0:
         return torch.empty_like(q)
     return _launch(q, k, v, causal)

@@ -13,8 +13,9 @@ SMALL_BUCKETS buckets), or chains the tiles' counts with a decoupled
 look-back (more buckets; its scratch is zeroed by one memset on the
 caller's stream).
 
-A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
-through :func:`radix_partition_plain`, the same function in plain PyTorch.
+A CUDA tensor goes through the kernel or the call raises; a CPU or
+``meta`` tensor goes through :func:`radix_partition_plain`, the same
+function in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -86,10 +87,11 @@ def radix_partition(buckets: torch.Tensor, n_buckets: int):
         # wrapper, answer without launching the kernel
         return (torch.arange(n, dtype=torch.int32, device=dev),
                 torch.full((1,), n, dtype=torch.int32, device=dev))
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return radix_partition_plain(buckets, n_buckets)
     if dev.type != "cuda":
-        raise ValueError(f"radix_partition runs on cuda or cpu, not {dev}")
+        raise ValueError(f"radix_partition runs on cuda, cpu or meta, not "
+                         f"{dev}")
     if n == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev),
                 torch.zeros(n_buckets, dtype=torch.int32, device=dev))
@@ -142,9 +144,9 @@ def radix_partition_plain(buckets: torch.Tensor, n_buckets: int):
     """The kernel's function in plain PyTorch: ``ref.destinations_ref``
     behind the wrapper's checks and a range check of the bucket ids.  Used
     for CPU tensors, by the tests, and on the card as the kernel's
-    comparison."""
+    comparison.  ``meta`` ids hold no values to range-check."""
     _check(buckets, n_buckets)
-    if buckets.numel() and not (0 <= int(buckets.min())
-                                and int(buckets.max()) < n_buckets):
+    if buckets.numel() and not buckets.is_meta and not (
+            0 <= int(buckets.min()) and int(buckets.max()) < n_buckets):
         raise ValueError(f"bucket ids must lie in [0, {n_buckets})")
     return destinations_ref(buckets, n_buckets)

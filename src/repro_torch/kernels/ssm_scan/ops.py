@@ -24,8 +24,10 @@ against reading dt and x and writing y once.
 
 A CUDA tensor goes through the kernel or the call raises; a CPU tensor
 goes through :func:`ssm_scan_plain`, the same function in plain PyTorch; a
-``meta`` tensor (the serving engines' cache probe) gets ``meta`` results of
-the right shapes and launches nothing.  The kernel's output lies outside
+``meta`` tensor (the serving engines' cache probe, the dry run) gets the
+closed form of the kernel's outputs, ``meta`` results of the right shapes,
+and launches nothing: the plain version is a Python loop over S, minutes
+on ``meta`` at 32k steps, with no matrix product to count.  The kernel's output lies outside
 autograd.
 
 Training goes through :class:`SSMScan`, an autograd Function whose forward
@@ -135,7 +137,7 @@ def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
     if dev.type == "meta":
         return _empty(dt, A, return_state, "meta")
     if dev.type != "cuda":
-        raise ValueError(f"ssm_scan runs on cuda or cpu, not {dev}")
+        raise ValueError(f"ssm_scan runs on cuda, cpu or meta, not {dev}")
     if dt.numel() == 0:
         y, h = _empty(dt, A, True, dev)
         y.zero_()

@@ -1,2 +1,2 @@
-"""Mesh construction (``mesh.py``).  The JAX package's multi-pod AOT dry run
-(``launch/dryrun.py``) and its production meshes are not ported yet."""
+"""Meshes (``mesh.py``) and the dry run of every arch x shape x mesh cell
+on ``meta`` tensors (``dryrun.py``)."""

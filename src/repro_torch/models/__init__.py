@@ -1,6 +1,8 @@
-from repro_torch.models.registry import (ModelApi, get_model,
-                                         make_concrete_batch,
+from repro_torch.models.registry import (ModelApi, decode_batch_shapes,
+                                         get_model, make_concrete_batch,
+                                         prefill_batch_shapes,
                                          train_batch_shapes)
 
-__all__ = ["ModelApi", "get_model", "make_concrete_batch",
+__all__ = ["ModelApi", "decode_batch_shapes", "get_model",
+           "make_concrete_batch", "prefill_batch_shapes",
            "train_batch_shapes"]

@@ -82,6 +82,11 @@ def train_batch_shapes(cfg, batch: int, seq: int) -> dict[str, Any]:
             "labels": ((batch, seq), torch.int32), **modal_shapes(cfg, batch)}
 
 
+def decode_batch_shapes(cfg, batch: int) -> dict[str, Any]:
+    return {"tokens": ((batch, 1), torch.int32),
+            "positions": ((batch,), torch.int32)}
+
+
 def prefill_batch_shapes(cfg, batch: int, seq: int) -> dict[str, Any]:
     return {"tokens": ((batch, seq), torch.int32),
             **modal_shapes(cfg, batch)}

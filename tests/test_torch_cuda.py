@@ -1149,3 +1149,103 @@ def test_moe_ffn_shardmap_on_the_card_matches_moe_ffn_per_shard(cuda, grid):
                       for s in x.split(512 // grid[0])])
     assert float((got - want).abs().max()) <= \
         1e-5 * float(want.abs().max())
+
+
+def _serve_cells(rows, prompt, new):
+    from repro_torch.configs import ShapeConfig
+    return (ShapeConfig("p", "prefill", prompt + new, rows),
+            ShapeConfig("d", "decode", prompt + new, rows))
+
+
+def test_sharded_bf16_prefill_holds_each_kernel_call_to_f32_plain(
+        cuda, monkeypatch):
+    """The sharded prefill of reduced qwen3-8b in bf16 on a (2, 2) mesh of
+    logical ranks of cuda:0: flash_attention launches once a layer a data
+    rank, and each call's result lies within 4e-3 + 2e-2 |plain| of the
+    plain version run in f32 on its inputs (the bf16 bound of the kernel
+    checks)."""
+    import dataclasses
+    from repro_torch.configs import ParallelConfig, get_config, reduced
+    from repro_torch.distributed.steps import make_prefill_step, shard_model
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (get_model, make_concrete_batch,
+                                    prefill_batch_shapes)
+    cfg = dataclasses.replace(reduced(get_config("qwen3-8b")),
+                              dtype="bfloat16")
+    calls, kernel = [], fa.flash_attention
+
+    def recorded(q, k, v, *, causal=True):
+        out = kernel(q, k, v, causal=causal)
+        calls.append((q, k, v, causal, out))
+        return out
+    recorded.launches = 0           # the kernel counts on the module's name
+    monkeypatch.setattr(fa, "flash_attention", recorded)
+    mesh = make_local_mesh(2, 2, device=cuda)
+    pshape, _ = _serve_cells(4, 256, 4)
+    step = make_prefill_step(cfg, mesh, ParallelConfig(), pshape)
+    model = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+    params = shard_model(model, step.info, mesh)
+    batch = make_concrete_batch(prefill_batch_shapes(cfg, 4, 256),
+                                np.random.default_rng(0), cfg.vocab_size,
+                                cuda)
+    _, logits = step.fn(params, batch)
+    assert recorded.launches == len(calls) == 2 * cfg.n_layers
+    assert all(torch.isfinite(x).all() for x in logits)
+    for q, k, v, causal, out in calls:
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                       causal=causal)
+        assert out.dtype == torch.bfloat16
+        assert bool(((out.float() - ref).abs()
+                     <= 4e-3 + 2e-2 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("arch,impl", [("qwen3-8b", "gspmd"),
+                                       ("qwen2-moe-a2.7b", "shardmap")])
+def test_sharded_f32_prefill_and_decode_tokens_equal_one_rank(cuda, arch,
+                                                              impl):
+    """Reduced ``arch`` in f32 (TF32 off; the MoE at a capacity that drops
+    nothing): the sharded prefill and 4 greedy decode steps on a (2, 2)
+    mesh of logical ranks of cuda:0 give one rank's tokens, the logits
+    within 1e-5 of the largest |logit|."""
+    import dataclasses
+    from repro_torch.configs import ParallelConfig, get_config, reduced
+    from repro_torch.distributed.sharding import unshard
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step,
+                                               shard_model)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (get_model, make_concrete_batch,
+                                    prefill_batch_shapes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    mesh = make_local_mesh(2, 2, device=cuda)
+    par = ParallelConfig(moe_impl=impl)
+    cells = _serve_cells(4, 128, 4)
+    sharded = [make_prefill_step(cfg, mesh, par, cells[0]),
+               make_decode_step(cfg, mesh, par, cells[1])]
+    one = [make_prefill_step(cfg, None, par, cells[0]),
+           make_decode_step(cfg, None, par, cells[1])]
+    model = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+    params = shard_model(model, sharded[0].info, mesh)
+    batch = make_concrete_batch(prefill_batch_shapes(cfg, 4, 128),
+                                np.random.default_rng(0), cfg.vocab_size,
+                                cuda)
+    cache, logits = sharded[0].fn(params, batch)
+    one_cache, want = one[0].fn(model, batch)
+    for t in range(5):
+        got = unshard(logits, sharded[0].info["logit_spec"], mesh)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+        if t == 4:
+            break
+        feed = {"tokens": want.argmax(-1, keepdim=True).to(torch.int32),
+                "positions": torch.full((4,), 128 + t, dtype=torch.int32,
+                                        device=cuda)}
+        logits, cache = sharded[1].fn(params, feed, cache)
+        want, one_cache = one[1].fn(model, feed, one_cache)

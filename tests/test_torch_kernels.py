@@ -184,7 +184,8 @@ def test_plain_version_is_what_the_cpu_path_runs():
     (torch.zeros(4, dtype=torch.int32), MAX_BUCKETS + 1, ValueError),
     (torch.zeros(4, dtype=torch.int32), 0, ValueError),
     (np.zeros(4, np.int32), 2, TypeError),
-    (torch.zeros(4, dtype=torch.int32, device="meta"), 2, ValueError),
+    # a meta tensor takes the plain version, behind the same checks
+    (torch.zeros(4, dtype=torch.int16, device="meta"), 2, ValueError),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad, n_buckets, err):
     with pytest.raises(err):
@@ -352,8 +353,9 @@ def test_flash_attention_rejects_mixed_inputs_and_other_devices():
     q = torch.zeros(1, 8, 4, 16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(ValueError):
-        fa.flash_attention(*(torch.zeros(1, 8, 4, 16, device="meta"),) * 3)
+    with pytest.raises(ValueError):      # q and k on meta, v on the CPU
+        fa.flash_attention(*(torch.zeros(1, 8, 4, 16, device="meta"),) * 2,
+                           q)
     with pytest.raises(ValueError):      # head dim not contiguous
         fa.flash_attention(q, q, torch.zeros(1, 8, 16, 4).transpose(2, 3))
     with pytest.raises(TypeError):
@@ -972,7 +974,8 @@ def test_bitonic_sort_torch_ref_matches_jax_ref():
     (torch.zeros(2, 4, dtype=torch.complex64), None, ValueError),
     (torch.zeros(2, 4), torch.zeros(2, 4), ValueError),         # f32 payload
     (torch.zeros(2, 4), torch.zeros(2, 5, dtype=torch.int32), ValueError),
-    (torch.zeros(2, 4, device="meta"), None, ValueError),       # device
+    # a meta tensor takes the plain version, behind the same checks
+    (torch.zeros(2, 4, dtype=torch.bool, device="meta"), None, ValueError),
     (np.zeros((2, 4)), None, TypeError),
 ])
 def test_bitonic_sort_rejects_what_it_does_not_take(keys, payload, err):
