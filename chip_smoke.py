@@ -19,7 +19,12 @@ Phases, one JSON line each:
             ssm_scan's y and final state within 1e-5 + 1e-5 * |plain|,
             whatever the inputs' dtypes, and a second call bit-identical
             (at zamba2's width, N 64, and at its Mamba2 calls: held to the
-            float64 scan instead);
+            float64 scan instead); with the state in bf16 (ssm_scan_dtype
+            "bfloat16") at serve_ssm_bf16's shapes, the sweep, the
+            long-memory inputs and zamba2's call: the state bit for bit, y
+            within 1e-5 + 1e-5 * sum_n |h_n C_n|, and at long memory y
+            nearer the bf16-state plain version than the f32 one; timed in
+            both modes;
             bitonic_sort's keys and payloads bit-identical), and its time
             beside its bound, the plain version's and one PyTorch call
             computing the same function, where there is one
@@ -53,6 +58,12 @@ Phases, one JSON line each:
   serve_ssm falcon-mamba-7b at its published widths in bf16, the same two
             acts, requests and timings as serve (after the qwen3-8b weights
             are freed); ssm_scan launches once per layer per prefill
+  serve_ssm_bf16  serve_ssm's weights with ssm_scan_dtype "bfloat16": the
+            continuous engine over the same requests, ssm_scan twice a layer
+            a prefill (y from the bf16 state, the f32 state for decode),
+            prefill and decode times beside serve_ssm's; each prompt
+            length's prefill states bit-equal to the f32 mode's on the same
+            scan inputs
   serve_ssm_f32  falcon-mamba-7b's widths with 2 layers in float32 (TF32
             off for matmuls and cuDNN): the continuous engine's tokens equal
             the full-forward oracle's
@@ -111,9 +122,12 @@ Phases, one JSON line each:
             the ETL stage called it at
   train_qwen3  qwen3-8b at its published widths in bf16, 4 of its 36 layers,
             5 AdamW steps on one batch of 1 x 2048 tokens: the loss falls,
-            step time and peak memory (under 80 GB); then the attention
-            Function's q, k and v gradients bit-equal to autograd of the
-            plain path at (1, 2048, 32, 8, 128) bf16
+            step time and peak memory (under 80 GB); the forward and
+            backward under remat_mode "dots" (every train phase's) and
+            "nothing": ms, peak GB, the backward's matrix products and the
+            weight products among them it recomputes (none under "dots");
+            then the attention Function's q, k and v gradients bit-equal
+            to autograd of the plain path at (1, 2048, 32, 8, 128) bf16
   train_moe qwen2-moe-a2.7b at its published widths in bf16, 4 of its 24
             layers (2.90 B parameters), the same 5 steps: the loss falls,
             step time, peak memory under 80 GB
@@ -121,7 +135,8 @@ Phases, one JSON line each:
             layers, the same 5 steps through ssm_scan under autograd
             (SSMScan): ssm_scan twice a layer a step under remat; then
             SSMScan's gradients bit-equal to autograd of ssm_scan_chunked
-            at (1, 2048, 8192, 16) and the backward's transient memory
+            at (1, 2048, 8192, 16) and the backward's transient memory,
+            with the state in f32 and in bf16 (chunk 1024)
   train_vlm / train_audio  internvl2-1b (1 x 2048 tokens after 256 patch
             embeddings) and whisper-medium (1500 frames, 448 tokens) at
             their published widths and full depth, bf16, 3 steps: the loss
@@ -130,9 +145,9 @@ Phases, one JSON line each:
   train_hybrid  zamba2-7b at its published widths in bf16, 18 of its 81
             layers (two groups of 9: the shared block's gradient sums two
             applications), the same 5 steps; then SSMScan's gradients at
-            one Mamba2 layer's call (1, 2048, 7168, 64) and FlashAttention's
-            at (1, 2048, 32, 32, 112) bf16, each bit-equal to autograd of
-            its plain path
+            one Mamba2 layer's call (1, 2048, 7168, 64), the state in f32
+            and in bf16, and FlashAttention's at (1, 2048, 32, 32, 112)
+            bf16, each bit-equal to autograd of its plain path
   train_cpu_gpu  the ci preset, 10 steps from the same parameters and
             batches on cuda:0 (TF32 off) and on the CPU: losses within 1e-4
             relative
@@ -186,13 +201,14 @@ Phases, one JSON line each:
             weights: tokens equal, logits within 1e-5 of the largest
             |logit| at every step
 
-The main-path phases (dist, pipeline, shuffle, process, the thirteen
+The main-path phases (dist, pipeline, shuffle, process, the fourteen
 serve phases, sort, the nine train phases and the six distributed ones)
 each start with every kernel's launch count at 0 and fail unless each
 kernel that the phase's path runs launched (the bf16 serve phases and
 serve_llama4: exactly once per layer per prefill, whisper's decoder layers
-twice, zamba2's attention once a group; the train phases: once per layer
-per forward, twice under remat; train_dist: once per layer per forward
+twice, zamba2's attention once a group, serve_ssm_bf16's scan twice a
+layer; the train phases, remat_mode "dots": once per layer per forward,
+twice under remat; train_dist: once per layer per forward
 per data rank, twice under remat; serve_dist: once per layer per data
 rank a prefill step, none in decode; moe_ep and compress run no kernel).
 Then
@@ -213,6 +229,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -249,7 +266,8 @@ HYBRID_ARCH = "zamba2-7b"
 # application its own KV slot)
 HYBRID_F32 = {"n_layers": 4, "shared_attn_period": 2}
 TRAIN_HYBRID_LAYERS = 18        # two groups of the published period 9
-LONG_STEP_MS = 3000             # split_step times a longer step once
+LONG_STEP_MS = 3000             # split_step profiles no longer step
+ONCE_STEP_MS = 1000             # and times a step longer than this once
 # Whisper's own decoding: the 4 start-of-transcript tokens, alone or after
 # a previous-text prompt (at most n_text_ctx // 2 = 224 tokens in all), and
 # a prompt with its new tokens within n_text_ctx = 448 (arXiv:2212.04356;
@@ -329,12 +347,12 @@ def profile(fn) -> dict:
     """One run of ``fn`` under torch.profiler: the device time by kernel
     (summed; the port runs on one stream), each port kernel's share, the
     device's idle share of the profiled wall time, and the number of
-    device kernels the run launched."""
+    device kernels the run launched.  Only the device is traced: host ops
+    would add events to read back and nothing to these numbers."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     sync()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -704,6 +722,13 @@ SSM_TOL = 1e-5                  # tests/test_kernels.py's f32 tolerance
 F32, BF16 = torch.float32, torch.bfloat16
 SSM_MODEL_MIX = (F32, BF16, BF16, BF16)     # dt, x, Bm, Cm in a bf16 model
 SSM_F32_MIX = (F32,) * 4
+# a shape marked so runs the scan with its state in bf16 (ssm_scan_dtype
+# "bfloat16")
+BF16_STATE = "bf16state"
+
+
+def _ssm_state_kwargs(shape) -> dict:
+    return {"state_dtype": BF16} if BF16_STATE in shape[5:] else {}
 
 
 def _ssm_spec():
@@ -735,6 +760,14 @@ def _ssm_spec():
         sides compute in f32 from the same values.  A second call must give
         the same bits (no atomics: the sums run in a fixed order).
 
+        A shape marked BF16_STATE (the state in bf16): the final state
+        must equal the plain version's bit for bit (the kernel takes its
+        decay from the same expf and rounds op by op as the plain version
+        does), and y lie within SSM_TOL + SSM_TOL * sum_n |h_n C_n| of the
+        plain y (the same f32 products summed in another order;
+        ``accuracy.terms_bf16``).  At a long-memory shape the mode must
+        show: y nearer the bf16-state plain version than the f32 one.
+
         A shape marked "f64" is held to the float64 scan of the same values
         instead (``accuracy.held_to_f64``): the state within SSM_TOL +
         SSM_TOL * |exact|, y within SSM_TOL + SSM_TOL * sum_n |h_n C_n|.
@@ -748,11 +781,27 @@ def _ssm_spec():
                   for o, r in zip(out, ref, strict=True))
         worst = max(accuracy.over_bound(o, r)
                     for o, r in zip(out, ref, strict=True))
-        again = ssm.ssm_scan(*args, return_state=True)
+        marks = (shape or ())[5:]
+        again = ssm.ssm_scan(*args, return_state=True,
+                             **_ssm_state_kwargs(shape or ()))
         same = all(torch.equal(o, a) for o, a in zip(out, again, strict=True))
         # worst_of_tolerance: the largest |kernel - plain| over its bound
         info = {"repeat_bit_identical": same, "worst_of_tolerance": worst}
-        if "f64" not in (shape or ())[5:]:
+        if BF16_STATE in marks:
+            info["state_bit_equal"] = torch.equal(out[1], ref[1])
+            info["y_over_terms_bound"] = accuracy.over_bound(
+                out[0], ref[0], accuracy.terms_bf16(*args))
+            ok = info["state_bit_equal"] and \
+                info["y_over_terms_bound"] <= 1 and same
+            if "long" in marks:
+                f32 = ssm.ssm_scan_plain(*args)
+                info["y_vs_bf16_plain"] = float((out[0] - ref[0]).abs().max())
+                info["y_vs_f32_plain"] = float((out[0] - f32).abs().max())
+                info["mode_shows"] = \
+                    info["y_vs_bf16_plain"] < info["y_vs_f32_plain"]
+                ok = ok and info["mode_shows"]
+            return err, ok, info
+        if "f64" not in marks:
             return err, worst <= 1 and same, info
         exact = accuracy.scan_f64(*args)
         info["kernel_vs_f64"], info["plain_vs_f64"] = (
@@ -785,9 +834,18 @@ def _ssm_spec():
             (str(t).removeprefix("torch.") for t in dtypes), strict=True)),
             **({"long_memory": True} if "long" in shape[5:] else {}),
             **({"inputs": "mamba2"} if "mamba2" in shape[5:] else {}),
-            **({"held_to": "float64"} if "f64" in shape[5:] else {})}
+            **({"held_to": "float64"} if "f64" in shape[5:] else {}),
+            **({"state": "bfloat16"} if BF16_STATE in shape[5:] else {})}
 
     mixes = (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16))
+    sweep_sizes = ((1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
+                   (1, 77, 100, 16), (2, 300, 40, 5), (1, 300, 1000, 16),
+                   (1, 300, 100, 3), (2, 17, 40, 5), (1, 1, 70, 12),
+                   (2, 300, d_inner, 16), (1, 300, 100, 32), (2, 17, 40, 33),
+                   (1, 77, 100, 64), (2, 1, 70, 64))
+    long_shapes = (*((1, 2048, 1024, n_state, mix, "long") for mix in mixes),
+                   (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX,
+                    "long"))
     timed = (1, 2048, d_inner, n_state, SSM_MODEL_MIX)
     zamba2 = (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX, "f64")
     # zamba2's Mamba2 call (N 64: the ssm_scan64 build), held to float64
@@ -803,6 +861,7 @@ def _ssm_spec():
         "wrapper": ssm.ssm_scan,
         "plain": ssm.ssm_scan_plain,
         "kwargs": {"return_state": True},       # as every prefill calls it
+        "shape_kwargs": _ssm_state_kwargs,
         "library": None,        # no one PyTorch call computes the scan
         "inputs": inputs, "compare": compare, "bound": bound,
         "tolerance": f"|kernel - plain| <= {SSM_TOL} + {SSM_TOL} * |plain| "
@@ -810,13 +869,17 @@ def _ssm_spec():
                      f"second call bit-identical; a check held to float64: "
                      f"|kernel - exact| <= {SSM_TOL} + {SSM_TOL} * "
                      f"sum_n |h_n C_n| for y, {SSM_TOL} + {SSM_TOL} * "
-                     f"|exact| for the state",
+                     f"|exact| for the state; a bf16 state: the state bit "
+                     f"for bit, y within {SSM_TOL} + {SSM_TOL} * "
+                     f"sum_n |h_n C_n| of the plain y",
         "describe": describe,
         # (B, S, D, N, dtypes) of every prefill and forward of the SSM serve
         # phases and of train_ssm's forward; the first is the timed one.
         # serve_ssm_f32's oracle runs a forward at every length from the
         # prompt's to the prompt's plus F32_NEW - 1, and the engine's
-        # prefill at the prompt's.  Then the same for zamba2's Mamba2 layers
+        # prefill at the prompt's.  serve_ssm_bf16 prefills each prompt
+        # alone with a bf16 state (and again in f32 for the state: the
+        # first shapes).  Then the same for zamba2's Mamba2 layers
         # (serve_hybrid, serve_hybrid_f32, train_hybrid's forward).
         "main_shapes": (
             *((1, s, d_inner, n_state, SSM_MODEL_MIX)
@@ -825,6 +888,8 @@ def _ssm_spec():
                 {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
             *((1, s + d, d_inner, n_state, SSM_F32_MIX) for s in F32_PROMPTS
               for d in range(F32_NEW)),
+            *((1, s, d_inner, n_state, SSM_MODEL_MIX, BF16_STATE)
+              for s in sorted(set(SERVE_PROMPTS), reverse=True)),
             *((1, s, z_d, z_n, SSM_MODEL_MIX, *mamba2)
               for s in sorted(set(SERVE_PROMPTS), reverse=True)),
             *((2, s, z_d, z_n, SSM_MODEL_MIX, *mamba2) for s in sorted(
@@ -833,27 +898,27 @@ def _ssm_spec():
               for d in range(F32_NEW)),
         ),
         # the serving shape, then zamba2-7b's Mamba2 call at a 2048-token
-        # prefill (d_inner 7168 in 112 heads, N 64), held to float64
-        "timed": (timed, (1, 2048, z_d, z_n, SSM_MODEL_MIX, *mamba2)),
+        # prefill (d_inner 7168 in 112 heads, N 64), held to float64; then
+        # both with the state in bf16
+        "timed": (timed, (1, 2048, z_d, z_n, SSM_MODEL_MIX, *mamba2),
+                  (*timed, BF16_STATE),
+                  (1, 2048, z_d, z_n, SSM_MODEL_MIX, "mamba2", BF16_STATE)),
         # the JAX sweep (tests/test_kernels.py), ragged S and D; N that is
         # no multiple of a channel's lanes, S of 1 and of no whole chunk or
         # group, D of no whole CTA, B = 2 at the serving width; N up to 64
         # (the second build); each all-f32, with the model's mix and with
         # another mix.  Then channels of long memory, the last at zamba2's
         # width, and zamba2's width with the default inputs, held to float64.
+        # Then the state in bf16: the ragged sizes all-f32 and in the
+        # model's mix, the long-memory inputs, and zamba2's Mamba2 call.
         "sweep": (
-            *((b, s, d, n, mix)
-              for b, s, d, n in ((1, 64, 32, 8), (2, 128, 64, 16),
-                                 (1, 96, 48, 4), (1, 77, 100, 16),
-                                 (2, 300, 40, 5), (1, 300, 1000, 16),
-                                 (1, 300, 100, 3), (2, 17, 40, 5),
-                                 (1, 1, 70, 12), (2, 300, d_inner, 16),
-                                 (1, 300, 100, 32), (2, 17, 40, 33),
-                                 (1, 77, 100, 64), (2, 1, 70, 64))
-              for mix in mixes),
-            *((1, 2048, 1024, n_state, mix, "long") for mix in mixes),
-            (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX, "long"),
-            zamba2),
+            *((*size, mix) for size in sweep_sizes for mix in mixes),
+            *long_shapes,
+            zamba2,
+            *((*size, mix, BF16_STATE) for size in sweep_sizes
+              for mix in mixes[:2]),
+            *((*shape, BF16_STATE) for shape in long_shapes),
+            (1, 2048, z_d, z_n, SSM_MODEL_MIX, "mamba2", BF16_STATE)),
     }
 
 
@@ -1086,7 +1151,7 @@ def _time_kernel(spec, shape, gen) -> dict:
                                  f"differs by {lib_err}")
         library_ms = time_ms(lambda: spec["library"](*args, **lib_kw))
     ms = time_ms(lambda: spec["wrapper"](*args, **kw))
-    plain_ms = time_ms(lambda: spec["plain"](*args, **kw), reps=5, warmup=1)
+    plain_ms = time_ms(lambda: spec["plain"](*args, **kw), reps=3, warmup=1)
     bound_ms, bound_by = spec["bound"](shape)
     return {"kernel_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1570,13 +1635,14 @@ def launches_per_forward(cfg) -> dict:
 
 
 def run_serve(arch, specs, records, kernels, extra=None,
-              traffic=SERVE_TRAFFIC):
+              traffic=SERVE_TRAFFIC, hold=None):
     """``arch`` at its published widths in bf16 through phase_serve on
     ``traffic`` under MainPath(``kernels``), then its timings and
     ``extra(cfg, params)``'s record, if given.  Each model kernel of the
     family launched exactly ``launches_per_forward`` times a prefill, and
     nothing else launched it.  Returns the phase's record (the main-path
-    run's launch counts under ``launches``)."""
+    run's launch counts under ``launches``); the weights go into ``hold``
+    under "params", if given, for a later phase."""
     from repro_torch.configs import get_config
     from repro_torch.core import logical_devices
     from repro_torch.models.transformer import param_count
@@ -1607,11 +1673,75 @@ def run_serve(arch, specs, records, kernels, extra=None,
     res.update(serve_timings(engine, reqs))
     if extra is not None:
         res.update(extra(cfg, params))
+    if hold is not None:
+        hold["params"] = params
     res.update(arch=arch, n_layers=cfg.n_layers,
                launches_per_prefill=per_prefill,
                param_count=param_count(params), weights_gb=weights_gb,
                init_s=init_s, launches=counts, allocated_gb_at_start=start_gb,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return res
+
+
+def phase_serve_ssm_bf16(specs, records, params, base):
+    """falcon-mamba-7b whole at its published widths in bf16 (serve_ssm's
+    weights) with ssm_scan_dtype="bfloat16": the continuous engine over
+    serve_ssm's requests (each prompt's prefill alone, then the decode
+    rounds), ssm_scan twice a layer a prefill (y from the bf16 state, the
+    state handed to decode from an f32 launch, as the JAX prefill's second
+    pass), none in decode (f32, plain); then serve_timings beside
+    serve_ssm's (``base``).  Last, each prompt length's prefill once more,
+    each layer's returned state held bit for bit to the f32 mode's state on
+    that layer's scan inputs.  Tokens are not held to a full forward: the
+    forward scans with a bf16 state while decode goes on from an f32 one,
+    as in the JAX package, so they may part."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.models import ssm as model_ssm
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve_lm import make_requests
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              ssm_scan_dtype="bfloat16")
+    reqs = make_requests(cfg, SERVE_PROMPTS, SERVE_BUDGETS)
+    engine = ContinuousEngine(cfg, params, max_batch=SERVE_MAX_BATCH,
+                              max_seq=SERVE_MAX_SEQ)
+    with MainPath(specs, records, ("ssm_scan",)) as mp:
+        out, run_s = wall(lambda: engine.run(reqs))
+    counts = mp.counts()
+    _check_tokens(cfg, reqs, out, "bf16 state")
+    if counts["ssm_scan"] != 2 * cfg.n_layers * len(reqs):
+        raise AssertionError(f"ssm_scan launched {counts['ssm_scan']} times"
+                             f" for {len(reqs)} prefills of "
+                             f"{2 * cfg.n_layers}")
+    res = {"arch": SSM_ARCH, "ssm_scan_dtype": cfg.ssm_scan_dtype,
+           "requests": len(reqs), "prompt_lengths": SERVE_PROMPTS,
+           "max_new_tokens": SERVE_BUDGETS, "run_s": run_s,
+           "launches_per_prefill": {"ssm_scan": 2 * cfg.n_layers},
+           "launches": counts, **serve_timings(engine, reqs),
+           "serve_ssm": {k: base[k] for k in ("prefill_ms",
+                                              "decode_ms_per_round")}}
+    # the f32 mode's state on each bf16-state call's inputs, layer by layer
+    states, scan = [], model_ssm.ssm_scan
+
+    def checking(*args, state_dtype=torch.float32, **kw):
+        if state_dtype == BF16:
+            states.append(ops.ssm_scan(*args, return_state=True)[1])
+        return scan(*args, state_dtype=state_dtype, **kw)
+    model_ssm.ssm_scan = checking
+    try:
+        for n in sorted(set(SERVE_PROMPTS)):
+            states.clear()
+            adm = engine.prefill_request(next(r for r in reqs
+                                              if len(r.prompt) == n))
+            if len(states) != cfg.n_layers or not all(
+                    torch.equal(adm.cache["h"][i], h)
+                    for i, h in enumerate(states)):
+                raise AssertionError(f"a {n}-token prefill's states differ "
+                                     f"from the f32 mode's")
+    finally:
+        model_ssm.ssm_scan = scan
+    res["prefill_state_equals_f32_mode"] = sorted(set(SERVE_PROMPTS))
     return res
 
 
@@ -1907,30 +2037,79 @@ def _step_ms(stamps: list) -> float:
     return statistics.median(np.diff(stamps[1:])) * 1e3
 
 
-def split_step(tr, state, batch, step_ms: float) -> dict:
+class GemmCount(TorchDispatchMode):
+    """Counts the matrix products run while it is active (the autograd
+    engine's threads inherit it): all of them, and those made inside
+    ``layers.dense``, the weight products: in a backward, those are the
+    ones its checkpoints recompute."""
+
+    def __init__(self):
+        super().__init__()
+        from repro_torch.models import layers
+        self.layers = layers
+        self.all = self.weight = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.layers._PRODUCTS:
+            self.all += 1
+            self.weight += self.layers._weight_product.n > 0
+        return func(*args, **(kwargs or {}))
+
+
+def split_step(tr, state, batch, step_ms: float, remat_modes=()) -> dict:
     """Where a train step's time goes, after the phase's checks (the state
     moves on): the forward and backward alone and the AdamW update alone
     (CUDA events, median of 3), and one whole step under the profiler.  A
-    step longer than LONG_STEP_MS (zamba2's 18 layers: seconds and 170 000
-    kernels) is timed once and not profiled, to keep the script within its
-    time limit."""
+    step longer than ONCE_STEP_MS (falcon-mamba's and internvl2's) is timed
+    once, and one longer than LONG_STEP_MS (zamba2's 18 layers: seconds and
+    170 000 kernels) is not profiled, to keep the script within its time
+    limit.  For each of ``remat_modes``, the forward and backward
+    under that ``remat_mode``: its time, its peak memory, and the matrix
+    products of its backward counted by GemmCount in one more run (the
+    weight products among them are those recomputed: none under "dots")."""
+    import dataclasses
     long = step_ms > LONG_STEP_MS
-    reps = 1 if long else 3
+    reps = 1 if step_ms > ONCE_STEP_MS else 3
     from repro_torch.models.convert import decayed_names
     from repro_torch.train.optimizer import adamw_update
     batch = {k: torch.as_tensor(v).to(tr.device) for k, v in batch.items()}
     params = dict(state.params.named_parameters())
     mode = tr.bundle.info["mode"]
 
-    def fwd_bwd():
-        loss = tr.api.loss_fn(state.params, tr.cfg, batch, mode)
-        return torch.autograd.grad(loss, list(params.values()))
+    def fwd_bwd(cfg=tr.cfg, count=None):
+        loss = tr.api.loss_fn(state.params, cfg, batch, mode)
+        if count is None:
+            return torch.autograd.grad(loss, list(params.values()))
+        with count:
+            return torch.autograd.grad(loss, list(params.values()))
     grads = dict(zip(params, fwd_bwd()))
     decay = decayed_names(params, tr.cfg)
     out = {"fwd_bwd_ms": time_ms(fwd_bwd, reps=reps, warmup=1),
            "optimizer_ms": time_ms(lambda: adamw_update(
                grads, state.opt_state, params, tr.ocfg, decay), reps=reps,
                warmup=1)}
+    del grads
+    remat = {}
+    for rm in remat_modes:
+        cfg = dataclasses.replace(tr.cfg, remat_mode=rm)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: fwd_bwd(cfg), reps=reps, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        count = GemmCount()
+        fwd_bwd(cfg, count)
+        remat[rm] = {"fwd_bwd_ms": ms, "peak_gb": peak,
+                     "backward_gemms": count.all,
+                     "backward_recomputed_weight_gemms": count.weight}
+    if remat:
+        if remat.get("dots", {}).get("backward_recomputed_weight_gemms"):
+            raise AssertionError(f"remat_mode dots recomputed weight "
+                                 f"products: {remat['dots']}")
+        if "nothing" in remat and \
+                not remat["nothing"]["backward_recomputed_weight_gemms"]:
+            raise AssertionError("remat_mode nothing recomputed no weight "
+                                 "product: the count sees no backward")
+        out["remat_modes"] = remat
     if not long:
         out["profile_step"] = profile(lambda: tr.bundle.fn(
             state.params, state.opt_state, batch))
@@ -2023,13 +2202,15 @@ def phase_train_etl(specs, records, gen):
 
 
 def train_published(specs, records, arch, n_layers=None, steps=TRAIN_STEPS,
-                    seq=TRAIN_SEQ) -> tuple:
+                    seq=TRAIN_SEQ, remat_modes=()) -> tuple:
     """``arch`` at its published widths in bf16, ``n_layers`` of its layers
     (all of them by default): ``steps`` AdamW steps on one fixed batch of 1
     x ``seq`` tokens (with a VLM's patch embeddings or an audio model's
     frames, drawn from a seed), each model kernel of the family
     ``launches_per_forward`` times a forward (twice under remat); the loss
-    must fall.  Returns the record and the trainer's attention mode."""
+    must fall.  The config's remat_mode is its default, "dots"; split_step
+    also runs the forward and backward under each of ``remat_modes``.
+    Returns the record and the trainer's attention mode."""
     import dataclasses
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
     from repro_torch.models import make_concrete_batch, train_batch_shapes
@@ -2067,7 +2248,7 @@ def train_published(specs, records, arch, n_layers=None, steps=TRAIN_STEPS,
     if peak_gb >= 80:
         raise AssertionError(f"{arch}: a step's peak is {peak_gb} GB")
     step_ms = _step_ms(stamps["t"])
-    split = split_step(tr, state, batch, step_ms)
+    split = split_step(tr, state, batch, step_ms, remat_modes)
     mode = tr.bundle.info["mode"]
     del state, tr
     free_device_memory()
@@ -2076,7 +2257,7 @@ def train_published(specs, records, arch, n_layers=None, steps=TRAIN_STEPS,
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
             "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
-            "batch": 1, "seq": seq,
+            "remat_mode": cfg.remat_mode, "batch": 1, "seq": seq,
             "inputs": {k: list(v[0]) for k, v in
                        train_batch_shapes(cfg, 1, seq).items()},
             "param_count": params, "init_s": init_s,
@@ -2088,12 +2269,14 @@ def train_published(specs, records, arch, n_layers=None, steps=TRAIN_STEPS,
 
 def phase_train_qwen3(specs, records, gen):
     """qwen3-8b at its published widths in bf16, TRAIN_QWEN3_LAYERS of its
-    layers (train_published).  Then the attention Function's gradients held
-    bit-equal to autograd through the plain path the train step
-    differentiates at that length."""
+    layers (train_published), with the forward and backward also timed
+    under remat_mode "dots" and "nothing" (split_step).  Then the attention
+    Function's gradients held bit-equal to autograd through the plain path
+    the train step differentiates at that length."""
     from repro_torch.configs import get_config
     res, mode = train_published(specs, records, SERVE_ARCH,
-                                TRAIN_QWEN3_LAYERS)
+                                TRAIN_QWEN3_LAYERS,
+                                remat_modes=("dots", "nothing"))
     return {**res, "grad_check": attention_grad_check(get_config(SERVE_ARCH),
                                                       mode, gen)}
 
@@ -2140,41 +2323,50 @@ def phase_train_ssm(specs, records, gen):
     its 64 layers (train_published): ssm_scan's forward under autograd
     through SSMScan.  Then SSMScan's gradients at one layer's shape held
     bit-equal to autograd of ssm_scan_chunked on the same inputs, and the
-    backward's transient device memory above its inputs and output."""
+    backward's transient device memory above its inputs and output; the
+    same with the state in bf16 (ssm_scan_dtype "bfloat16": the chunk of
+    the model's ssm_chunk, 1024)."""
     from repro_torch.configs import get_config
     res, _ = train_published(specs, records, SSM_ARCH, TRAIN_SSM_LAYERS)
     cfg = get_config(SSM_ARCH)
+    shape = (1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX)
     return {**res, "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
-            "grad_check": scan_grad_check(specs, (
-                1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX),
-                gen)}
+            "grad_check": scan_grad_check(specs, shape, gen),
+            "bf16_grad_check": scan_grad_check(specs, shape, gen, BF16,
+                                               cfg.ssm_chunk)}
 
 
-def scan_grad_check(specs, shape, gen) -> dict:
-    """SSMScan's gradients on the ssm_scan spec's inputs at ``shape`` held
-    bit-equal to autograd of ssm_scan_chunked, and the backward's transient
-    device memory above its inputs and output."""
+def scan_grad_check(specs, shape, gen, state_dtype=torch.float32,
+                    chunk=None) -> dict:
+    """SSMScan's gradients on the ssm_scan spec's inputs at ``shape``, the
+    state in ``state_dtype`` and the backward's chunk ``chunk`` (default
+    ops.SCAN_CHUNK), held bit-equal to autograd of ssm_scan_chunked, and
+    the backward's transient device memory above its inputs and output."""
     from repro_torch.kernels.ssm_scan import ops as ssm
     spec = next(s for s in specs if s["name"] == "ssm_scan")
     b, s, d, n, dtypes = shape[:5]
+    chunk = chunk or ssm.SCAN_CHUNK
     args = [t.detach().requires_grad_() for t in spec["inputs"](shape, gen)]
     g = torch.randn((b, s, d), generator=gen, device="cuda")
-    y = ssm.SSMScan.apply(*args)
+    y = ssm.SSMScan.apply(*args, state_dtype, chunk)
     sync()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     got = torch.autograd.grad(y, args, g)
     sync()
     transient = torch.cuda.max_memory_allocated() - base
-    want = torch.autograd.grad(ssm.ssm_scan_chunked(*args), args, g)
+    want = torch.autograd.grad(ssm.ssm_scan_chunked(
+        *args, chunk=chunk, state_dtype=state_dtype), args, g)
     if not all(torch.equal(x, w) for x, w in zip(got, want)):
         raise AssertionError("SSMScan's gradients differ from autograd of "
                              "ssm_scan_chunked")
+    used = chunk if state_dtype == torch.float32 else ssm.jax_chunk(s, chunk)
     return {"shape": [b, s, d, n], "inputs": shape[5:],
             "dtypes": [str(t).removeprefix("torch.") for t in dtypes],
-            "scan_chunk": ssm.SCAN_CHUNK, "bit_equal": True,
+            "state_dtype": str(state_dtype).removeprefix("torch."),
+            "scan_chunk": used, "bit_equal": True,
             "backward_transient_gb": transient / 1e9,
-            "one_chunk_tensor_gb": b * ssm.SCAN_CHUNK * d * n * 4e-9}
+            "one_chunk_tensor_gb": b * used * d * n * 4e-9}
 
 
 def phase_train_hybrid(specs, records, gen):
@@ -2183,18 +2375,20 @@ def phase_train_hybrid(specs, records, gen):
     at which the shared block's gradient sums two applications
     (train_published; remat by group: each kernel twice a forward).  Then
     SSMScan's gradients at one Mamba2 layer's call (each head's dt and A
-    repeated over its 64 channels) and FlashAttention's at the shared
-    block's (1, 2048, 32, 32, 112) in bf16, each bit-equal to autograd of
-    its plain path."""
+    repeated over its 64 channels), with the state in f32 and in bf16
+    (chunk 1024), and FlashAttention's at the shared block's (1, 2048, 32,
+    32, 112) in bf16, each bit-equal to autograd of its plain path."""
     from repro_torch.configs import get_config
     res, mode = train_published(specs, records, HYBRID_ARCH,
                                 TRAIN_HYBRID_LAYERS)
     cfg = get_config(HYBRID_ARCH)
+    mamba2 = (1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX,
+              "mamba2")
     return {**res, "shared_attn_period": cfg.shared_attn_period,
             "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
-            "scan_grad_check": scan_grad_check(specs, (
-                1, TRAIN_SEQ, cfg.d_inner, cfg.ssm_state, SSM_MODEL_MIX,
-                "mamba2"), gen),
+            "scan_grad_check": scan_grad_check(specs, mamba2, gen),
+            "bf16_scan_grad_check": scan_grad_check(specs, mamba2, gen, BF16,
+                                                    cfg.ssm_chunk),
             "attention_grad_check": attention_grad_check(cfg, mode, gen)}
 
 
@@ -2914,8 +3108,11 @@ def main() -> int:
         res = phase_serve_f32(SERVE_ARCH)
     emit("serve_f32", launches=mp.counts(), **res)
 
-    res = run_serve(SSM_ARCH, specs, records, radix + scan)
+    held = {}
+    res = run_serve(SSM_ARCH, specs, records, radix + scan, hold=held)
     emit("serve_ssm", **res)
+    emit("serve_ssm_bf16", **phase_serve_ssm_bf16(specs, records,
+                                                  held.pop("params"), res))
     with MainPath(specs, records, scan) as mp:
         res = phase_serve_f32(SSM_ARCH)
     emit("serve_ssm_f32", launches=mp.counts(), **res)

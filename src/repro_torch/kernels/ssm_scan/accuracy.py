@@ -122,6 +122,26 @@ def scan_f64(dt, A, Bm, Cm, x):
     return y, h, size
 
 
+def terms_bf16(dt, A, Bm, Cm, x):
+    """sum_n |h_n C_n| (B,S,D) of the bf16-state recurrence, the plain
+    version's (``ref.ssm_scan_ref`` at bfloat16): the size of y's terms.
+    The kernel's bf16 state is the plain version's bit for bit, and its y
+    sums the same f32 products in another order, so the two y differ by
+    that sum's rounding, which scales with this size."""
+    dt, x, Bm, A = (t.float() for t in (dt, x, Bm, A))
+    c = Cm.bfloat16().float().abs()
+    b, s, d = dt.shape
+    h = torch.zeros((b, d, A.shape[1]), dtype=torch.bfloat16,
+                    device=dt.device)
+    size = torch.empty((b, s, d), dtype=torch.float32, device=dt.device)
+    for t in range(s):
+        decay = torch.exp(dt[:, t, :, None] * A).bfloat16()
+        h = decay * h + ((dt[:, t] * x[:, t])[..., None]
+                         * Bm[:, t, None, :]).bfloat16()
+        size[:, t] = (h.float().abs() * c[:, t, None, :]).sum(-1)
+    return size
+
+
 def over_bound(out, ref, size=None) -> float:
     """The largest |out - ref| over TOL + TOL * size, with |ref| as the
     size by default: at most 1 where ``out`` holds the f32 tolerance

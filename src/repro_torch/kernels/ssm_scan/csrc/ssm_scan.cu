@@ -41,6 +41,16 @@
 // - The decay is one ex2.approx of dt * (A log2 e) instead of expf's nine
 //   instructions (keep_a and decay below; PERF.md gives its accuracy).
 //
+// BF16_STATE (a flag of the entry point, one more instantiation): the JAX
+// package's ssm_scan_dtype = "bfloat16".  The decay and the input are
+// rounded to bf16, the state is rounded to bf16 after the product and again
+// after the sum (what bf16 a * h + b does op by op in PyTorch), C is
+// rounded to bf16, and y still sums in f32.  The decay there is expf, the
+// plain version's torch.exp bit for bit, and every product and sum is
+// rounded on its own (no fmaf), so the state equals the plain version's
+// bit for bit: with ex2.approx a rounded decay can land one bf16 ulp away,
+// and the state then drifts by ulps.
+//
 // Every input is f32 or bf16 on its own (a flag each), read through its
 // batch and step strides (rows contiguous), so the model's dt (f32 after
 // softplus), x (bf16) and the column slices Bm, Cm of x_db go in as they
@@ -48,7 +58,8 @@
 // is staged as zeros, which leaves h unchanged (exp(0) = 1, no input) and
 // adds nothing to y; those are never written out.  With h_out non-null the
 // state after the last step is written (B, D, N) f32: the TPU kernel's
-// scratch at the end of its grid, which a prefill hands to decode.
+// scratch at the end of its grid, which a prefill hands to decode (in
+// BF16_STATE mode: the bf16 state, exactly, in f32).
 // Every launch goes on the caller's stream; the entry point returns
 // cudaGetLastError().
 #include <cuda_bf16.h>
@@ -202,9 +213,24 @@ __device__ __forceinline__ float decay(float dt, float a) {
   return r;
 }
 
+// f32 rounded to the nearest bf16, as f32
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One step of one state in BF16_STATE mode, from A itself (not A log2 e):
+// the plain version's roundings, op by op.
+__device__ __forceinline__ float step_bf16(float h, float dt, float A,
+                                           float dx, float bv) {
+  const float a = bf16r(expf(__fmul_rn(dt, A)));
+  const float in = bf16r(__fmul_rn(dx, bv));
+  return bf16r(__fadd_rn(bf16r(__fmul_rn(a, h)), in));
+}
+
 // PACKED: Bm and Cm both bf16, staged as one word a (state, step), C in
 // the high half and B in the low, so a thread reads half as many words.
-template <bool PACKED>
+// BF16_STATE: the state carried in bf16 (above).
+template <bool PACKED, bool BF16_STATE>
 __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
   __shared__ __align__(16) float s_dt[CHANNELS][ROW];
   __shared__ __align__(16) float s_dx[CHANNELS][ROW];    // dt * x
@@ -225,8 +251,9 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
 #pragma unroll
   for (int j = 0; j < PER_LANE; ++j) {
     const int n = j * LANES + lane;
-    A[j] = keep_a((d < D && n < N) ? load(a.A, d * a.a_d + n, a.a_bf16)
-                                   : 0.f);
+    const float an = (d < D && n < N) ? load(a.A, d * a.a_d + n, a.a_bf16)
+                                      : 0.f;
+    A[j] = BF16_STATE ? an : keep_a(an);
     h[j] = 0.f;
   }
 
@@ -299,8 +326,13 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
             const float bv = PACKED ? __uint_as_float(w << 16) : part(b4[j], u);
             const float cv = PACKED ? __uint_as_float(w & 0xffff0000u)
                                     : part(c4[j], u);
-            h[j] = fmaf(decay(dtv, A[j]), h[j], dxv * bv);
-            acc = fmaf(h[j], cv, acc);
+            if constexpr (BF16_STATE) {
+              h[j] = step_bf16(h[j], dtv, A[j], dxv, bv);
+              acc = fmaf(h[j], bf16r(cv), acc);
+            } else {
+              h[j] = fmaf(decay(dtv, A[j]), h[j], dxv * bv);
+              acc = fmaf(h[j], cv, acc);
+            }
           }
           p[q + u] = acc;
         }
@@ -344,13 +376,15 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
 }
 
 // strides: dt (b, s), x (b, s), Bm (b, s), Cm (b, s), A (d), in elements.
-// dtypes: dt, A, Bm, Cm, x; 0 = float32, 1 = bfloat16.
+// dtypes: dt, A, Bm, Cm, x; 0 = float32, 1 = bfloat16.  state_bf16: 0 =
+// the state in f32, 1 = in bf16 (BF16_STATE).
 extern "C" int ssm_scan_launch(const void* dt, const void* A, const void* Bm,
                                const void* Cm, const void* x, void* y,
                                void* h_out, const long long* strides,
                                const int* dtypes, int B, int S, int D, int N,
-                               cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || D <= 0 || N <= 0 || N > MAX_STATE || B > 65535)
+                               int state_bf16, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || D <= 0 || N <= 0 || N > MAX_STATE || B > 65535 ||
+      (state_bf16 != 0 && state_bf16 != 1))
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 5; ++i)
     if (dtypes[i] != 0 && dtypes[i] != 1) return (int)cudaErrorInvalidValue;
@@ -380,9 +414,17 @@ extern "C" int ssm_scan_launch(const void* dt, const void* A, const void* Bm,
   a.D = D;
   a.N = N;
   const dim3 grid((D + CHANNELS - 1) / CHANNELS, B);
-  if (a.bm_bf16 && a.cm_bf16)
-    ssm_scan_kernel<true><<<grid, THREADS, 0, stream>>>(a);
-  else
-    ssm_scan_kernel<false><<<grid, THREADS, 0, stream>>>(a);
+  const bool packed = a.bm_bf16 && a.cm_bf16;
+  if (state_bf16) {
+    if (packed)
+      ssm_scan_kernel<true, true><<<grid, THREADS, 0, stream>>>(a);
+    else
+      ssm_scan_kernel<false, true><<<grid, THREADS, 0, stream>>>(a);
+  } else {
+    if (packed)
+      ssm_scan_kernel<true, false><<<grid, THREADS, 0, stream>>>(a);
+    else
+      ssm_scan_kernel<false, false><<<grid, THREADS, 0, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,15 @@ With ``return_state`` it also returns the state after the last step,
 (B, D, N) f32: what the TPU kernel leaves in its VMEM scratch at the end of
 the grid, and what a prefill hands to decode.
 
+``state_dtype=torch.bfloat16`` is the JAX package's ``ssm_scan_dtype =
+"bfloat16"``: the decay and the input are computed in f32 and rounded to
+bf16, the state is carried in bf16 (rounded after the product and again
+after the sum), C is rounded to bf16, and y is summed in f32.  The kernel
+then takes the decay from the same ``expf`` as the plain version's
+``torch.exp``, so its state matches the plain version's bit for bit; the
+state it returns is the bf16 state, held in f32.  Other dtypes
+(float16) are not ported (ROADMAP queue 2 A3).
+
 Unlike the JAX wrapper, which asserts S % chunk == 0 and D % d_block == 0,
 this one takes any S and any D: the kernel masks the ragged tails.  Each of
 dt, A, Bm, Cm and x may be f32 or bf16 on its own, read as it is (no cast
@@ -64,10 +73,12 @@ CHUNK = 32                  # time steps staged in shared memory at a time
 BUILDS = (16, 64)
 MAX_STATE = BUILDS[-1]      # largest N
 MAX_BATCH = 65535           # the grid's y dimension
-# time steps per chunk of ssm_scan_chunked: the JAX ModelConfig's default
-# ssm_chunk.  The backward holds one chunk's (B, SCAN_CHUNK, D, N) f32
-# decay, input and state tensors at a time.
+# time steps per chunk of ssm_scan_chunked with an f32 state: the JAX
+# ModelConfig's default ssm_chunk.  The backward holds one chunk's (B,
+# SCAN_CHUNK, D, N) f32 decay, input and state tensors at a time.  A bf16
+# state takes the model's cfg.ssm_chunk instead (models/ssm.py::scan_mode).
 SCAN_CHUNK = 128
+# a dtype's code for the kernel: each input's, and the state's mode
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 _load_lock = threading.Lock()
@@ -93,14 +104,18 @@ def load(n_state: int = 1):
                 "THREADS": THREADS, "LANES": LANES, "MAX_STATE": max_state,
                 "CHUNK": CHUNK})
             fn = lib.ssm_scan_launch
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _entries[max_state] = fn
         return _entries[max_state]
 
 
-def _check(dt, A, Bm, Cm, x):
+def _check(dt, A, Bm, Cm, x, state_dtype=torch.float32):
+    if state_dtype not in _DTYPES:
+        raise ValueError(f"state dtype {state_dtype}; the scan carries its "
+                         f"state in float32 or bfloat16 (other dtypes: "
+                         f"ROADMAP queue 2 A3)")
     named = (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("x", x))
     for name, t in named:
         if not isinstance(t, torch.Tensor):
@@ -128,12 +143,15 @@ def _check(dt, A, Bm, Cm, x):
         raise ValueError(f"batch {b} > {MAX_BATCH}")
 
 
-def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
-    """y (B,S,D) f32, or ``(y, h_last)`` with ``return_state``."""
-    _check(dt, A, Bm, Cm, x)
+def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False,
+             state_dtype: torch.dtype = torch.float32):
+    """y (B,S,D) f32, or ``(y, h_last)`` with ``return_state``; the state
+    carried in ``state_dtype`` (float32 or bfloat16)."""
+    _check(dt, A, Bm, Cm, x, state_dtype)
     dev = dt.device
     if dev.type == "cpu":
-        return ssm_scan_plain(dt, A, Bm, Cm, x, return_state=return_state)
+        return ssm_scan_plain(dt, A, Bm, Cm, x, return_state=return_state,
+                              state_dtype=state_dtype)
     if dev.type == "meta":
         return _empty(dt, A, return_state, "meta")
     if dev.type != "cuda":
@@ -143,7 +161,7 @@ def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False):
         y.zero_()
         h.zero_()
         return (y, h) if return_state else y
-    return _launch(dt, A, Bm, Cm, x, return_state)
+    return _launch(dt, A, Bm, Cm, x, return_state, state_dtype)
 
 
 ssm_scan.launches = 0     # kernel launches since the last reset
@@ -158,7 +176,7 @@ def _empty(dt, A, return_state, device):
                           device=device)
 
 
-def _launch(dt, A, Bm, Cm, x, return_state: bool):
+def _launch(dt, A, Bm, Cm, x, return_state: bool, state_dtype):
     fn = load(A.shape[1])
     b, s, d = dt.shape
     y, h = _empty(dt, A, True, dt.device)
@@ -172,7 +190,7 @@ def _launch(dt, A, Bm, Cm, x, return_state: bool):
         err = fn(dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  x.data_ptr(), y.data_ptr(),
                  h.data_ptr() if return_state else None, strides, dtypes,
-                 b, s, d, A.shape[1], stream)
+                 b, s, d, A.shape[1], _DTYPES[state_dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     with _count_lock:
@@ -180,12 +198,14 @@ def _launch(dt, A, Bm, Cm, x, return_state: bool):
     return (y, h) if return_state else y
 
 
-def ssm_scan_plain(dt, A, Bm, Cm, x, *, return_state: bool = False):
+def ssm_scan_plain(dt, A, Bm, Cm, x, *, return_state: bool = False,
+                   state_dtype: torch.dtype = torch.float32):
     """The kernel's function in plain PyTorch: ``ref.ssm_scan_ref`` behind
     the wrapper's checks.  Used for CPU tensors, by the tests, and on the
     card as the kernel's comparison."""
-    _check(dt, A, Bm, Cm, x)
-    return ssm_scan_ref(dt, A, Bm, Cm, x, return_state=return_state)
+    _check(dt, A, Bm, Cm, x, state_dtype)
+    return ssm_scan_ref(dt, A, Bm, Cm, x, return_state=return_state,
+                        state_dtype=state_dtype)
 
 
 def kernel_order(dt, A, Bm, Cm, x, *, max_state=None, lanes=LANES):
@@ -285,35 +305,54 @@ def associative_scan(a, b):
                  for e0, e, o in zip((a, b), even, odd))
 
 
-def _scan_chunk(h, dt, A, Bm, Cm, x):
+def _scan_chunk(h, dt, A, Bm, Cm, x, state_dtype):
     """One chunk of :func:`ssm_scan_chunked` from state ``h`` (B,D,N): the
-    JAX package's ``_mamba1_ssm_inputs`` decay and input for the chunk,
-    its ``chunk_body`` scan, and C contracted at once.  Returns y (B,c,D)
-    and the chunk's last state, f32."""
+    JAX package's ``_mamba1_ssm_inputs`` decay and input for the chunk in
+    f32 (cast to ``state_dtype``, as ``mamba1_apply`` casts them, with C),
+    its ``chunk_body`` scan in that dtype, and C contracted at once in
+    f32.  Returns y (B,c,D) f32 and the chunk's last state."""
     dt, A, Bm, Cm, x = (t.float() for t in (dt, A, Bm, Cm, x))
     a = torch.exp(dt[..., None] * A)                          # (B,c,D,N)
     b = (dt * x)[..., None] * Bm[:, :, None, :]
+    if state_dtype != torch.float32:
+        a, b, Cm = a.to(state_dtype), b.to(state_dtype), Cm.to(state_dtype)
     pa, pb = associative_scan(a, b)
     h_all = pb + pa * h[:, None]
-    return torch.einsum("bscn,bsn->bsc", h_all, Cm), h_all[:, -1]
+    return (torch.einsum("bscn,bsn->bsc", h_all.float(), Cm.float()),
+            h_all[:, -1])
 
 
-def ssm_scan_chunked(dt, A, Bm, Cm, x, *, chunk: int = SCAN_CHUNK):
+def jax_chunk(s: int, chunk: int) -> int:
+    """The JAX package's chunk length for S steps: the largest divisor of
+    S no larger than ``chunk`` (``_assoc_scan_chunked``)."""
+    chunk = max(min(chunk, s), 1)
+    while s % chunk:
+        chunk -= 1
+    return chunk
+
+
+def ssm_scan_chunked(dt, A, Bm, Cm, x, *, chunk: int = SCAN_CHUNK,
+                     state_dtype: torch.dtype = torch.float32):
     """y (B,S,D) f32: the function of :func:`ssm_scan` as the JAX package's
-    Mamba1 training computes it, chunks of ``chunk`` steps one after
-    another (the last may be shorter), each by an associative scan.  Where
+    Mamba1 training computes it, chunk after chunk, each by an associative
+    scan.  With an f32 state the chunks are ``chunk`` steps long, the last
+    may be shorter; with a bf16 state the chunk is shrunk to the largest
+    divisor of S, as the JAX package shrinks ``cfg.ssm_chunk``, because
+    there the chunks' bounds decide where the state is rounded: this then
+    gives the JAX ``_assoc_scan_chunked``'s states bit for bit.  Where
     gradients are recorded each chunk runs under
     ``torch.utils.checkpoint``: the forward keeps only each chunk's
     starting state, and the backward rebuilds one chunk's (B, chunk, D, N)
     tensors at a time."""
-    _check(dt, A, Bm, Cm, x)
+    _check(dt, A, Bm, Cm, x, state_dtype)
     b, s, d = dt.shape
-    h = torch.zeros((b, d, A.shape[1]), dtype=torch.float32,
-                    device=dt.device)
+    if state_dtype != torch.float32:
+        chunk = jax_chunk(s, chunk)
+    h = torch.zeros((b, d, A.shape[1]), dtype=state_dtype, device=dt.device)
     ys = []
     for t in range(0, s, chunk):
         args = (h, dt[:, t:t + chunk], A, Bm[:, t:t + chunk],
-                Cm[:, t:t + chunk], x[:, t:t + chunk])
+                Cm[:, t:t + chunk], x[:, t:t + chunk], state_dtype)
         if torch.is_grad_enabled():
             y, h = torch.utils.checkpoint.checkpoint(_scan_chunk, *args,
                                                      use_reentrant=False)
@@ -326,24 +365,29 @@ def ssm_scan_chunked(dt, A, Bm, Cm, x, *, chunk: int = SCAN_CHUNK):
 
 
 class SSMScan(torch.autograd.Function):
-    """``apply(dt, A, Bm, Cm, x)`` -> y (B,S,D) f32: forward through
-    :func:`ssm_scan` (the kernel on the card, the sequential plain version
-    on the CPU); backward through autograd of :func:`ssm_scan_chunked`
+    """``apply(dt, A, Bm, Cm, x[, state_dtype, chunk])`` -> y (B,S,D) f32:
+    forward through :func:`ssm_scan` (the kernel on the card, the
+    sequential plain version on the CPU); backward through autograd of
+    :func:`ssm_scan_chunked` at the same state dtype and ``chunk``,
     recomputed from the saved inputs, so the gradients are bit for bit
-    those of ``ssm_scan_chunked``."""
+    those of ``ssm_scan_chunked`` (at bf16: the JAX package's gradients
+    through its bf16 chunked scan)."""
 
     @staticmethod
-    def forward(ctx, dt, A, Bm, Cm, x):
+    def forward(ctx, dt, A, Bm, Cm, x, state_dtype=torch.float32,
+                chunk=SCAN_CHUNK):
         ctx.save_for_backward(dt, A, Bm, Cm, x)
-        return ssm_scan(dt, A, Bm, Cm, x)
+        ctx.state_dtype, ctx.chunk = state_dtype, chunk
+        return ssm_scan(dt, A, Bm, Cm, x, state_dtype=state_dtype)
 
     @staticmethod
     def backward(ctx, grad_y):
-        need = ctx.needs_input_grad
+        need = ctx.needs_input_grad[:5]
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, need)]
-            y = ssm_scan_chunked(*ins)
+            y = ssm_scan_chunked(*ins, chunk=ctx.chunk,
+                                 state_dtype=ctx.state_dtype)
             wrt = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(y, wrt, grad_y))
-        return tuple(next(grads) if n else None for n in need)
+        return (*(next(grads) if n else None for n in need), None, None)

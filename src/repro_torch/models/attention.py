@@ -26,8 +26,8 @@ import functools
 import torch
 
 from repro_torch.kernels.flash_attention.ops import FlashAttention
-from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
-                                       rope_sincos)
+from repro_torch.models.layers import (apply_rope, dense, dense_init,
+                                       rms_norm, rope_sincos)
 
 NEG_INF = -1e30
 
@@ -45,9 +45,9 @@ def attn_init(gen, d_model, n_heads, n_kv_heads, head_dim, qk_norm, dtype):
 
 def qkv_project(p, x, positions, theta, qk_norm, norm_eps):
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,K,hd) with RoPE applied."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)

@@ -14,8 +14,9 @@ The model is an ``nn.Module`` whose parameter groups are
 ``wo`` (H, hd, d)), ``ln2``, ``mlp``; ``decoder`` layers of ``ln1``,
 ``self``, ``ln2``, ``cross``, ``ln3``, ``mlp``; ``enc_norm`` and
 ``final_norm``.  Both stacks are ``nn.ModuleList``s walked in a Python
-loop; ``cfg.remat`` wraps each layer of a forward that records gradients
-in ``torch.utils.checkpoint``, as the transformer does.
+loop; ``cfg.remat`` and ``cfg.remat_mode`` checkpoint each layer of a
+forward that records gradients, as the transformer does
+(``layers.layer_stack``).
 
 On a CUDA tensor every non-causal attention (the encoder's self-attention,
 prefill's cross-attention over the frames) and the decoder's causal
@@ -35,8 +36,9 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
-                                       embed_init, frozen, layer_stack,
+from repro_torch.models.layers import (cross_entropy_loss, dense,
+                                       embed_apply, embed_init, frozen,
+                                       layer_stack,
                                        logits_apply, meta_groups, mlp_apply,
                                        mlp_init, rms_norm,
                                        sinusoidal_positions, torch_dtype)
@@ -114,12 +116,12 @@ def _posenc(x):
 
 def _heads(x, w):
     """(B,S,d) x (d,H,hd) -> (B,S,H,hd)."""
-    return torch.einsum("bsd,dhk->bshk", x, w)
+    return dense(x, w)
 
 
 def _out(o, w):
     """(B,S,H,hd) x (H,hd,d) -> (B,S,d)."""
-    return torch.einsum("bshk,hkd->bsd", o, w)
+    return dense(o, w, 2)
 
 
 def _enc_layer(lp, x, cfg, mode):

@@ -9,9 +9,10 @@ groups are ``nn.ParameterDict``s under the JAX package's names: ``shared``
 (``ln1``, ``attn``, ``ln2``, ``mlp``) and ``layers``, an ``nn.ModuleList``
 of G groups, each an ``nn.ModuleList`` of P layers (``ln`` and the Mamba2
 weights of ``ssm.mamba2_init``), walked in Python loops where the JAX
-package scans.  ``cfg.remat`` wraps each group of a forward that records
-gradients in ``torch.utils.checkpoint``, as the JAX package's
-``maybe_remat`` wraps its group body: it changes memory, not numbers.
+package scans.  ``cfg.remat`` and ``cfg.remat_mode`` checkpoint each
+group of a forward that records gradients, as the JAX package's
+``maybe_remat`` wraps its group body (``layers.layer_stack``): it changes
+memory and the backward's work, not numbers.
 
 The cache is flat, as the serving engines take it (the JAX cache nests the
 Mamba2 state under ``ssm``): ``k`` and ``v`` (G, B, smax, K, hd), the
@@ -32,8 +33,9 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
-                                       embed_init, frozen, layer_stack,
+from repro_torch.models.layers import (cross_entropy_loss, dense,
+                                       embed_apply, embed_init, frozen,
+                                       layer_stack,
                                        logits_apply, meta_groups, mlp_apply,
                                        mlp_init, rms_norm, torch_dtype)
 
@@ -124,7 +126,7 @@ def _shared_block(shared, x, positions, cfg, mode, cache=None,
         ck, cv = attn.cache_update(cache[0], cache[1], k, v, write_pos)
         o = attn.attend_decode(q, ck, cv, write_pos + 1)
         new_cache = (ck, cv)
-    x = x + torch.einsum("bshk,hkd->bsd", o, shared["attn"]["wo"])
+    x = x + dense(o, shared["attn"]["wo"], 2)
     h = rms_norm(x, shared["ln2"], cfg.norm_eps)
     return x + mlp_apply(shared["mlp"], h), new_cache
 

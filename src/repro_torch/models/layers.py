@@ -10,12 +10,14 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -43,18 +45,128 @@ def meta_groups(groups) -> dict:
             for k, v in groups.items()}
 
 
-def layer_stack(fn, layers, x, cfg, *args):
-    """``x = fn(layer, x, cfg, *args)`` over ``layers``.  Where ``cfg.remat``
-    asks and gradients are recorded, each layer runs under
-    ``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of its
-    scan body: it changes memory, not numbers."""
-    remat = cfg.remat and torch.is_grad_enabled()
-    for layer in layers:
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(fn, layer, x, cfg, *args,
-                                                  use_reentrant=False)
+# ----------------------------------------------------------------------------
+# Rematerialisation: cfg.remat and cfg.remat_mode, as the JAX maybe_remat
+# ----------------------------------------------------------------------------
+# the aten products a matrix product reaches: torch.mm in dense(), bmm in
+# the batched products (attention, the scan's backward, the experts)
+_PRODUCTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                       torch.ops.aten.addmm.default))
+
+
+class _Thread(threading.local):
+    n = 0           # dense() calls open on this thread
+    frame = None    # the "dots" layer body running on this thread: (its
+    #                 kept products, replaying?, the next one to replay)
+
+
+_weight_product = _Thread()
+
+
+def _kept(out):
+    """What a "dots" body keeps of a product: its output detached (the same
+    storage, none of its autograd history) and its version."""
+    return out.detach(), out._version
+
+
+class _Replay(TorchDispatchMode):
+    """Around the ``torch.mm`` of a dense() call when the backward
+    recomputes a "dots" body: the product returns the output kept in the
+    forward instead of running.  Autograd, above this mode, still records
+    the product and saves its inputs, so the recompute saves what the
+    forward saved."""
+
+    def __init__(self, kept):
+        super().__init__()
+        self.kept = kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is not torch.ops.aten.mm.default:
+            # the recompute's own bookkeeping (the saved inputs' detach)
+            return func(*args, **(kwargs or {}))
+        out, version = self.kept
+        if out._version != version:
+            raise RuntimeError("a dense() output kept for the recompute was "
+                               "written in place")
+        return out.detach()
+
+
+def dense(x, w, dims: int = 1):
+    """``x`` times the weight ``w``, contracting x's last ``dims`` dims
+    with w's first ``dims`` (``bsd,de->bse``; ``bsd,dhk->bshk``;
+    ``bshk,hkd->bsd`` with ``dims=2``), as one ``torch.mm``: a product with
+    no batch dimension, the JAX ``dot_general`` that
+    ``dots_with_no_batch_dims_saveable`` saves.  Every weight product of a
+    layer body goes through here: in a "dots" body (``layer_stack``) the
+    forward keeps its output and the backward's recompute is handed it
+    back (``_Replay``) instead of running it again."""
+    lead, tail = x.shape[:x.dim() - dims], w.shape[dims:]
+    x2 = x.reshape(-1, math.prod(x.shape[x.dim() - dims:]))
+    w2 = w.reshape(x2.shape[1], -1)
+    frame = _weight_product.frame
+    _weight_product.n += 1
+    try:
+        if frame is None:
+            out = torch.mm(x2, w2)
+        elif frame[1]:
+            kept, _, at = frame
+            with _Replay(kept[at[0]]):
+                out = torch.mm(x2, w2)
+            at[0] += 1
         else:
+            out = torch.mm(x2, w2)
+            frame[0].append(_kept(out))
+    finally:
+        _weight_product.n -= 1
+    return out.view(*lead, *tail)
+
+
+def _keeping_weight_products(fn):
+    """``fn`` as a "dots" checkpoint's body: its first call (the forward)
+    keeps every dense() product, each later call (the backward's
+    recompute) is handed them back in the same order."""
+    kept, calls = [], [0]
+
+    def body(*args):
+        calls[0] += 1
+        outer = _weight_product.frame
+        _weight_product.frame = (kept, calls[0] > 1, [0])
+        try:
+            return fn(*args)
+        finally:
+            _weight_product.frame = outer
+    return body
+
+
+def remat_mode(cfg) -> str:
+    """What a layer body of ``cfg`` keeps for its backward, as the JAX
+    ``maybe_remat`` reads ``cfg``: "none" (``cfg.remat`` False or
+    ``remat_mode`` "none": no checkpoint, everything kept), "nothing"
+    (recomputed whole) or "dots" (any other ``remat_mode``: the weight
+    products' outputs kept, the rest recomputed)."""
+    mode = getattr(cfg, "remat_mode", "dots")
+    if not cfg.remat or mode == "none":
+        return "none"
+    return "nothing" if mode == "nothing" else "dots"
+
+
+def layer_stack(fn, layers, x, cfg, *args):
+    """``x = fn(layer, x, cfg, *args)`` over ``layers``.  Where gradients
+    are recorded, each layer runs under ``torch.utils.checkpoint`` as
+    ``remat_mode(cfg)`` says, the JAX package's ``maybe_remat`` of its
+    scan body: it changes memory and what the backward recomputes, not
+    numbers.  Under "dots" only the recompute's dense() products pass a
+    dispatch mode; ``torch.utils.checkpoint``'s selective policies put
+    one around every op of the body, and its Python cost a step outweighed
+    the products it spared."""
+    mode = remat_mode(cfg) if torch.is_grad_enabled() else "none"
+    for layer in layers:
+        if mode == "none":
             x = fn(layer, x, cfg, *args)
+            continue
+        body = fn if mode == "nothing" else _keeping_weight_products(fn)
+        x = torch.utils.checkpoint.checkpoint(body, layer, x, cfg, *args,
+                                              use_reentrant=False)
     return x
 
 
@@ -138,9 +250,9 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> dict:
 
 
 def mlp_apply(p, x):
-    g = F.silu(x @ p["wg"])
-    u = x @ p["wi"]
-    return (g * u) @ p["wo"]
+    g = F.silu(dense(x, p["wg"]))
+    u = dense(x, p["wi"])
+    return dense(g * u, p["wo"])
 
 
 # ----------------------------------------------------------------------------

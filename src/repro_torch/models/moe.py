@@ -41,7 +41,8 @@ import torch.nn.functional as F
 from repro_torch.dataframe import comm
 from repro_torch.distributed.context import (current_mesh, current_moe_impl,
                                              mesh_sizes)
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+from repro_torch.models.layers import (dense, dense_init, mlp_apply,
+                                       mlp_init)
 
 
 def expert_init(gen: torch.Generator, n: int, shape, dtype) -> torch.Tensor:
@@ -82,7 +83,7 @@ def capacity(n_tokens: int, cfg) -> int:
 def route(p, x, cfg):
     """x (T, d) -> (expert_idx (T, k) int64, gates (T, k) f32).  Ties
     between gates go to the lower expert index."""
-    logits = x.float() @ p["router"]
+    logits = dense(x.float(), p["router"])
     gates_all = torch.softmax(logits, dim=-1)
     idx = torch.sort(gates_all, dim=-1, descending=True,
                      stable=True).indices[:, :cfg.top_k]
@@ -109,7 +110,7 @@ def dispatch_indices(expert_idx, n_experts: int, cap: int):
 def _shared(p, xt, out, cfg):
     if not cfg.n_shared_experts:
         return out
-    sg = torch.sigmoid(xt.float() @ p["shared_gate"])
+    sg = torch.sigmoid(dense(xt.float(), p["shared_gate"]))
     return out + mlp_apply(p["shared"], xt) * sg.to(out.dtype)
 
 

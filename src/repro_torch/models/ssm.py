@@ -18,25 +18,61 @@ wrapper and kernel (N 64 at zamba2: the ``ssm_scan64`` build).  The JAX
 twin materialises (B, S, n_heads, head_dim, N) instead.
 
 The config knobs that change only how the JAX package computes the same
-function (``fused_ssm_y``, ``unroll_scans``, ``ssm_chunk``) are ignored
-here: the chunk length is ``ops.SCAN_CHUNK``.  ``ssm_scan_dtype`` other
-than float32 changes the numbers and is not ported yet.
+function (``fused_ssm_y``, ``unroll_scans``) are ignored here.
+``ssm_scan_dtype`` is honoured (``scan_mode``): at "bfloat16" the scan
+carries its state in bf16 (the kernel's bf16-state mode, and the same
+roundings in the plain version and in the training backward), and only
+then is ``ssm_chunk`` read: the backward's chunked scan takes the JAX
+package's chunk, because where the chunks end decides where a bf16 state
+is rounded.  An f32 state's backward takes ``ops.SCAN_CHUNK``.  As in the
+JAX package, a prefill under "bfloat16" computes its output from the bf16
+scan and hands decode the f32 state of the unrounded inputs (a second
+launch, in f32), and decode runs in f32.  Other dtypes (float16) raise.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan.ops import SSMScan, ssm_scan
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.kernels.ssm_scan.ops import SCAN_CHUNK, SSMScan, ssm_scan
+from repro_torch.models.layers import dense, dense_init, rms_norm
+
+# cfg.ssm_scan_dtype -> the dtype the scan carries its state in
+SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_scan_dtype(cfg):
-    if cfg.ssm_scan_dtype != "float32":
+    if cfg.ssm_scan_dtype not in SCAN_DTYPES:
         raise NotImplementedError(
             f"{cfg.name}: ssm_scan_dtype={cfg.ssm_scan_dtype!r} is not ported "
-            f"yet (ROADMAP kernel item 4, scan state in bf16); the port's "
-            f"scan runs in float32")
+            f"yet (ROADMAP queue 2 A3); the port's scan carries its state in "
+            f"float32 or bfloat16")
+
+
+def scan_mode(cfg) -> tuple:
+    """(state dtype, chunk of the training backward's chunked scan) for
+    ``cfg.ssm_scan_dtype``: bf16 with ``cfg.ssm_chunk``, or f32 with
+    ``ops.SCAN_CHUNK``."""
+    check_scan_dtype(cfg)
+    sdt = SCAN_DTYPES[cfg.ssm_scan_dtype]
+    return sdt, cfg.ssm_chunk if sdt == torch.bfloat16 else SCAN_CHUNK
+
+
+def _scan(cfg, dt, A, Bm, Cm, x, return_state: bool):
+    """The selective scan of a Mamba layer's forward in ``cfg``'s mode: the
+    wrapper, or ``SSMScan`` where gradients are recorded.  With
+    ``return_state`` (a prefill, no gradient) also the final state in
+    f32: under a bf16 state that of a second, f32 launch on the same
+    unrounded inputs, as the JAX prefill's second pass computes it."""
+    sdt, chunk = scan_mode(cfg)
+    if return_state:
+        if sdt == torch.float32:
+            return ssm_scan(dt, A, Bm, Cm, x, return_state=True)
+        y = ssm_scan(dt, A, Bm, Cm, x, state_dtype=sdt)
+        return y, ssm_scan(dt, A, Bm, Cm, x, return_state=True)[1]
+    if torch.is_grad_enabled():
+        return SSMScan.apply(dt, A, Bm, Cm, x, sdt, chunk)
+    return ssm_scan(dt, A, Bm, Cm, x, state_dtype=sdt)
 
 
 def _causal_conv(x, w, b):
@@ -86,9 +122,9 @@ def _mamba1_ssm_inputs(p, x_conv, cfg):
     returns the materialised decay and input instead.)"""
     check_scan_dtype(cfg)
     dtr, st = cfg.dt_rank, cfg.ssm_state
-    x_db = torch.einsum("bsc,ce->bse", x_conv, p["x_proj"])
+    x_db = dense(x_conv, p["x_proj"])
     dt, Bm, Cm = x_db.split([dtr, st, st], dim=-1)
-    dt = F.softplus(torch.einsum("bsr,rc->bsc", dt, p["dt_proj"]).float()
+    dt = F.softplus(dense(dt, p["dt_proj"]).float()
                     + p["dt_bias"].float())
     A = -torch.exp(p["A_log"])
     return dt, A, Bm, Cm
@@ -98,19 +134,16 @@ def mamba1_apply(p, x, cfg, *, return_state: bool = False):
     """x (B,S,d) -> (B,S,d).  With ``return_state`` also the state after the
     last token, dict(conv (B,K-1,di), h (B,di,N) f32), as a prefill
     hands it to decode (no gradient flows through that call's scan)."""
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = dense(x, p["in_proj"])
     x_in, z = xz.chunk(2, dim=-1)
     x_conv = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
     dt, A, Bm, Cm = _mamba1_ssm_inputs(p, x_conv, cfg)
+    y = _scan(cfg, dt, A, Bm, Cm, x_conv, return_state)
     if return_state:
-        y, h = ssm_scan(dt, A, Bm, Cm, x_conv, return_state=True)
-    elif torch.is_grad_enabled():
-        y = SSMScan.apply(dt, A, Bm, Cm, x_conv)
-    else:
-        y = ssm_scan(dt, A, Bm, Cm, x_conv)
+        y, h = y
     y = y + p["D"] * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = torch.einsum("bsc,cd->bsd", y, p["out_proj"])
+    out = dense(y, p["out_proj"])
     if not return_state:
         return out
     km1 = cfg.ssm_conv - 1
@@ -122,7 +155,7 @@ def mamba1_decode(p, x, state, cfg):
     """x (B,1,d); state dict(conv (B,K-1,di), h (B,di,N)) -> (y, state).
     Writes the new conv window and h into ``state``'s tensors IN PLACE (the
     JAX twin returns new ones) and returns them."""
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]
+    xz = dense(x, p["in_proj"])[:, 0]
     x_in, z = xz.chunk(2, dim=-1)
     xc, conv_state = _conv_step(state["conv"], x_in, p["conv_w"],
                                 p["conv_b"])
@@ -134,7 +167,7 @@ def mamba1_decode(p, x, state, cfg):
     y = torch.einsum("bcn,bn->bc", h, Cm[:, 0].float())
     y = y + p["D"] * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = torch.einsum("bc,cd->bd", y, p["out_proj"])[:, None, :]
+    out = dense(y, p["out_proj"])[:, None, :]
     state["conv"].copy_(conv_state)
     state["h"].copy_(h)
     return out, state
@@ -171,7 +204,7 @@ def mamba2_init(gen: torch.Generator, cfg, dtype) -> dict:
 
 def _mamba2_split(p, x, cfg):
     di, st = cfg.d_inner, cfg.ssm_state
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    zxbcdt = dense(x, p["in_proj"])
     return zxbcdt.split([di, di + 2 * st, cfg.ssm_heads], dim=-1)
 
 
@@ -201,25 +234,23 @@ def _mamba2_out(p, y, xh, z, x, cfg):
     """D skip, gate, the gated RMS norm and out_proj after the scan."""
     y = y + p["D"].repeat_interleave(cfg.ssm_head_dim) * xh.float()
     y = rms_norm(y * F.silu(z.float()), p["norm_w"], cfg.norm_eps)
-    return torch.einsum("bsc,cd->bsd", y.to(x.dtype), p["out_proj"])
+    return dense(y.to(x.dtype), p["out_proj"])
 
 
 def mamba2_apply(p, x, cfg, *, return_state: bool = False):
     """x (B,S,d) -> (B,S,d).  With ``return_state`` also the state after the
     last token, dict(conv (B,K-1,d_inner+2N), h (B,nh,head_dim,N) f32), as
     a prefill hands it to decode: the scan's own final state (the JAX
-    prefill scans a second time for it)."""
+    prefill scans a second time for it; so does this one under a bf16
+    state, ``_scan``)."""
     b = x.shape[0]
     z, xbc, dt = _mamba2_split(p, x, cfg)
     xbc_conv = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
     dt, A, xh, Bm, Cm = _mamba2_ssm(p, xbc_conv, dt, cfg)
     dt, A = _mamba2_channels(dt, A, cfg)
+    y = _scan(cfg, dt, A, Bm, Cm, xh, return_state)
     if return_state:
-        y, h = ssm_scan(dt, A, Bm, Cm, xh, return_state=True)
-    elif torch.is_grad_enabled():
-        y = SSMScan.apply(dt, A, Bm, Cm, xh)
-    else:
-        y = ssm_scan(dt, A, Bm, Cm, xh)
+        y, h = y
     out = _mamba2_out(p, y, xh, z, x, cfg)
     if not return_state:
         return out

@@ -4,9 +4,11 @@ The model is an ``nn.Module`` whose parameter groups are
 ``nn.ParameterDict``s under the JAX package's names and layouts (each
 layer: ``ln`` and the Mamba1 weights of ``ssm.mamba1_init``), frozen like
 ``transformer.Transformer``.  Layers are an ``nn.ModuleList`` walked in a
-Python loop, not a stacked scan; ``cfg.remat`` wraps each layer of a
-forward that records gradients in ``torch.utils.checkpoint``, as the
-transformer does (the recomputed forward runs the scan again).
+Python loop, not a stacked scan; ``cfg.remat`` and ``cfg.remat_mode``
+checkpoint each layer of a forward that records gradients, as the
+transformer does (``layers.layer_stack``; the recomputed forward runs the
+scan again under "nothing" and "dots").  ``cfg.ssm_scan_dtype`` is read
+by ``ssm.scan_mode``.
 
 The cache keeps the JAX layout: ``conv`` (n_layers, B, K-1, d_inner) in the
 cache dtype and ``h`` (n_layers, B, d_inner, N) in f32, so the serving

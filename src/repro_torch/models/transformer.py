@@ -15,10 +15,12 @@ holds ``attn`` and one FFN group under the JAX name of its stack
 ``moe_layer_period`` layers) and ``mlp_dense`` (width ``d_ff_dense or
 d_ff``) on the others.  Parameters carry no gradient unless the model is
 built trainable (``init(..., trainable=True)`` or
-``model.requires_grad_()``); serving keeps them frozen.  ``cfg.remat``
-wraps each layer of a forward that records gradients in
-``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of its
-scan body: it changes memory, not numbers.
+``model.requires_grad_()``); serving keeps them frozen.  In a forward
+that records gradients, ``cfg.remat`` and ``cfg.remat_mode`` checkpoint
+each layer as the JAX package's ``maybe_remat`` does its scan body
+(``layers.layer_stack``; "dots", the default, keeps the weight products
+of ``layers.dense`` and recomputes the rest): it changes memory and the
+backward's work, not numbers.
 
 The KV cache keeps the JAX layout, ``(n_super, period, B, smax, K, hd)``
 for ``k`` and ``v``, layer i at superblock ``i // period``, slot
@@ -34,8 +36,9 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
-                                       embed_init, frozen, layer_stack,
+from repro_torch.models.layers import (cross_entropy_loss, dense,
+                                       embed_apply, embed_init, frozen,
+                                       layer_stack,
                                        logits_apply, meta_groups, mlp_apply,
                                        mlp_init, rms_norm, torch_dtype)
 
@@ -146,7 +149,7 @@ def _attn_sub(p, x, positions, cfg, mode: AttnMode):
     q, k, v = attn.qkv_project(p, h, positions, cfg.rope_theta, cfg.qk_norm,
                                cfg.norm_eps)
     o = attn.attend(q, k, v, causal=True, mode=mode)
-    return x + torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+    return x + dense(o, p["wo"], 2), (k, v)
 
 
 def _ffn_sub(layer, x, cfg):
@@ -238,7 +241,7 @@ def decode_step(params, cfg, batch, cache):
         ck, cv = attn.cache_update(cache["k"][sb, j], cache["v"][sb, j], k,
                                    v, positions)
         o = attn.attend_decode(q, ck, cv, positions + 1)
-        x = x + torch.einsum("bshk,hkd->bsd", o, ap["wo"])
+        x = x + dense(o, ap["wo"], 2)
         x = _ffn_sub(layer, x, cfg)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0], cache

@@ -474,6 +474,75 @@ def test_ssm_scan_kernel_at_the_serving_width(cuda):
     torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
 
 
+def _bf16_state_holds(out, ref, args):
+    """A bf16-state result against the plain version's: the state bit for
+    bit, y within 1e-5 + 1e-5 * sum_n |h_n C_n| (the same f32 products
+    summed in another order)."""
+    assert torch.equal(out[1], ref[1])
+    assert accuracy.over_bound(out[0], ref[0],
+                               accuracy.terms_bf16(*args)) <= 1
+
+
+@pytest.mark.parametrize("b,s,d,n", SSM_SWEEP)
+@pytest.mark.parametrize("mix", ["f32", "model"])
+def test_ssm_scan_bf16_state_kernel_matches_plain(cuda, b, s, d, n, mix):
+    """ssm_scan_dtype "bfloat16": one launch; the state the plain
+    version's bit for bit (expf and the plain version's roundings, op by
+    op), y within the bound of its terms; a second call the same bits."""
+    args = _ssm_inputs(cuda, b, s, d, n, mix, seed=s)
+    before = ssm_ops.ssm_scan.launches
+    out = ssm_ops.ssm_scan(*args, return_state=True,
+                           state_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    _bf16_state_holds(out, ssm_ops.ssm_scan_plain(
+        *args, return_state=True, state_dtype=torch.bfloat16), args)
+    again = ssm_ops.ssm_scan(*args, return_state=True,
+                             state_dtype=torch.bfloat16)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+
+
+@pytest.mark.parametrize("n,kind", [(16, "long"), (64, "long"),
+                                    (64, "mamba2")])
+def test_ssm_scan_bf16_state_kernel_at_long_memory(cuda, n, kind):
+    """Long memory and zamba2's Mamba2 call at 2048 steps: the bf16 state
+    bit for bit, and y nearer the bf16-state plain version than the f32
+    one (the mode acts)."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    args = accuracy.inputs(1, 2048, 256, n, SSM_MIXES["model"], kind,
+                           gen=gen)
+    out = ssm_ops.ssm_scan(*args, return_state=True,
+                           state_dtype=torch.bfloat16)
+    ref = ssm_ops.ssm_scan_plain(*args, return_state=True,
+                                 state_dtype=torch.bfloat16)
+    _bf16_state_holds(out, ref, args)
+    f32 = ssm_ops.ssm_scan_plain(*args)
+    assert (out[0] - ref[0]).abs().max() < (out[0] - f32).abs().max()
+
+
+@pytest.mark.parametrize("b,s,d,n,mix,kind,chunk", [
+    (2, 77, 40, 5, "model", "softplus", 8),
+    (1, 2048, 8192, 16, "model", "softplus", 1024),   # falcon-mamba-7b's
+])
+def test_ssm_scan_function_bf16_grads_are_chunked_autograd_bit_for_bit(
+        cuda, b, s, d, n, mix, kind, chunk):
+    """SSMScan with a bf16 state: the bf16-state kernel forward once, and
+    the gradients those of autograd through ssm_scan_chunked at bf16 and
+    the JAX chunk, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    ins = [t.detach().requires_grad_() for t in accuracy.inputs(
+        b, s, d, n, SSM_MIXES[mix], kind, gen=gen)]
+    g = torch.randn((b, s, d), generator=gen, device=cuda)
+    before = ssm_ops.ssm_scan.launches
+    y = ssm_ops.SSMScan.apply(*ins, torch.bfloat16, chunk)
+    got = torch.autograd.grad(y, ins, g)
+    want = torch.autograd.grad(ssm_ops.ssm_scan_chunked(
+        *ins, chunk=chunk, state_dtype=torch.bfloat16), ins, g)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    assert all(torch.equal(u, w) for u, w in zip(got, want))
+
+
 def test_ssm_scan_kernel_raises_not_falls_back(cuda):
     dt, A, bm, cm, x = _ssm_inputs(cuda, 1, 8, 16, 4, "f32")
     with pytest.raises(ValueError):
@@ -483,6 +552,8 @@ def test_ssm_scan_kernel_raises_not_falls_back(cuda):
                                          device=cuda), bm, cm, x)
     with pytest.raises(ValueError):
         ssm_ops.ssm_scan(dt, A, bm.cpu(), cm, x)
+    with pytest.raises(ValueError, match="ROADMAP queue 2 A3"):
+        ssm_ops.ssm_scan(dt, A, bm, cm, x, state_dtype=torch.float16)
 
 
 def test_ssm_f32_token_check_at_reduced_widths(cuda, monkeypatch):

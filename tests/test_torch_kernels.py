@@ -610,7 +610,8 @@ def test_ssm_scan_build_takes_its_constants_from_the_wrapper(monkeypatch,
             assert f"-D{name}={getattr(ssm_ops, name)}" in cmd
     for name in ("THREADS", "LANES", "MAX_STATE", "CHUNK"):
         assert f"#define {name}" not in ssm_ops._SOURCE.read_text()
-    assert len(fn.argtypes) == 14
+    # 9 pointers, B, S, D, N, the state's mode, the stream
+    assert len(fn.argtypes) == 15
     assert ssm_ops.build_for(16) == ssm_ops.BUILDS[0]
     assert ssm_ops.build_for(17) == ssm_ops.build_for(64) == ssm_ops.BUILDS[1]
     for n in (0, ssm_ops.MAX_STATE + 1):

@@ -257,33 +257,42 @@ def test_mamba_ten_step_losses_match_jax():
     assert tl[-1] < tl[0]
 
 
-def test_mamba_remat_changes_no_number_and_runs_the_scan_again():
-    """cfg.remat wraps each Mamba layer in torch.utils.checkpoint: the same
-    loss and gradients bit for bit; the recomputed forward runs the scan's
-    forward once more a layer (so on the card, the kernel twice a layer a
-    step)."""
+@pytest.mark.parametrize("mode", ["none", "nothing", "dots"])
+def test_mamba_remat_changes_no_number_and_runs_the_scan_again(mode):
+    """cfg.remat wraps each Mamba layer in torch.utils.checkpoint as
+    ``remat_mode`` says: the same loss and gradients bit for bit; under
+    "nothing" and "dots" the recomputed forward runs the scan's forward
+    once more a layer (so on the card, the kernel twice a layer a step),
+    under "none" it does not."""
+    _, tcfg = _configs()
+    (want, base), (grads, calls) = (_remat_step(False, "none"),
+                                    _remat_step(True, mode))
+    assert all(torch.equal(a, b) for a, b in zip(want, grads))
+    assert [base, calls] == [tcfg.n_layers,
+                             (1 if mode == "none" else 2) * tcfg.n_layers]
+
+
+@functools.lru_cache(maxsize=None)
+def _remat_step(remat: bool, mode: str) -> tuple:
+    """(loss and gradients, scan calls) of one step under ``cfg.remat``
+    and ``remat_mode`` (kept: each case compares with the same remat=False
+    run)."""
     _, tcfg = _configs()
     _, host = _jax_params()
-    batch = {k: torch.from_numpy(v) for k, v in
-             _batch(tcfg.vocab_size).items()}
-    grads, calls = [], []
-    orig = ops.ssm_scan
-    for remat in (False, True):
-        cfg = dataclasses.replace(tcfg, remat=remat)
-        model = params_from_jax(host, cfg, "cpu").requires_grad_()
-        n = [0]
+    cfg = dataclasses.replace(tcfg, remat=remat, remat_mode=mode)
+    model = params_from_jax(host, cfg, "cpu").requires_grad_()
+    n, orig = [0], ops.ssm_scan
 
-        def counting(*a, **kw):
-            n[0] += 1
-            return orig(*a, **kw)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(ops, "ssm_scan", counting)
-            loss = get_model(cfg).loss_fn(model, cfg, batch)
-            loss.backward()
-        calls.append(n[0])
-        grads.append([loss.detach()] + [p.grad for p in model.parameters()])
-    assert all(torch.equal(a, b) for a, b in zip(*grads))
-    assert calls == [tcfg.n_layers, 2 * tcfg.n_layers]
+    def counting(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "ssm_scan", counting)
+        loss = get_model(cfg).loss_fn(model, cfg, {
+            k: torch.from_numpy(v) for k, v in
+            _batch(tcfg.vocab_size).items()})
+        loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()], n[0]
 
 
 def test_mamba1_apply_takes_the_function_only_under_autograd():

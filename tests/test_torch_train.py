@@ -403,21 +403,30 @@ def test_serving_models_stay_frozen_and_init_can_train():
                    for p in params_from_jax(host, tcfg, CPU).parameters())
 
 
-def test_remat_changes_no_number():
-    """cfg.remat wraps each layer in torch.utils.checkpoint: the same loss
-    and the same gradients, bit for bit, on the CPU."""
+@functools.lru_cache(maxsize=None)
+def _remat_grads(remat: bool, mode: str) -> list:
+    """The loss and gradients of one step under ``cfg.remat`` and
+    ``remat_mode`` (kept: each case compares with the same remat=False
+    run)."""
     _, tcfg = _configs()
     _, host = _jax_params()
-    batch = _torch_batch(_batch(tcfg.vocab_size))
-    grads = []
-    for remat in (False, True):
-        cfg = dataclasses.replace(tcfg, remat=remat)
-        model = params_from_jax(host, cfg, CPU).requires_grad_()
-        loss = get_model(cfg).loss_fn(model, cfg, batch,
-                                      TA.AttnMode(kind="full"))
-        loss.backward()
-        grads.append([loss.detach()] + [p.grad for p in model.parameters()])
-    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    cfg = dataclasses.replace(tcfg, remat=remat, remat_mode=mode)
+    model = params_from_jax(host, cfg, CPU).requires_grad_()
+    loss = get_model(cfg).loss_fn(model, cfg,
+                                  _torch_batch(_batch(tcfg.vocab_size)),
+                                  TA.AttnMode(kind="full"))
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()]
+
+
+@pytest.mark.parametrize("mode", ["none", "nothing", "dots"])
+def test_remat_changes_no_number(mode):
+    """cfg.remat wraps each layer in torch.utils.checkpoint as
+    ``remat_mode`` says (none, the whole layer, or all but its weight
+    products): the same loss and the same gradients, bit for bit, on the
+    CPU."""
+    assert all(torch.equal(a, b) for a, b in zip(
+        _remat_grads(False, "none"), _remat_grads(True, mode)))
 
 
 def test_attn_mode_matches_jax_train_step():

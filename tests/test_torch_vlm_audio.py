@@ -366,21 +366,28 @@ def test_ten_step_losses_match_jax(arch):
     assert tl[-1] < tl[0]
 
 
-def test_remat_changes_no_number_in_the_encoder_decoder():
-    """cfg.remat wraps each encoder and decoder layer in
-    torch.utils.checkpoint: the same loss and gradients, bit for bit."""
+@functools.lru_cache(maxsize=None)
+def _encdec_remat_grads(remat: bool, mode: str) -> list:
+    """whisper's loss and gradients of one step under ``cfg.remat`` and
+    ``remat_mode`` (kept: each case compares with the same remat=False
+    run)."""
     _, tcfg = _configs(AUDIO)
     _, host = _jax_params(AUDIO)
     batch = {k: torch.from_numpy(v) for k, v in _train_batch(tcfg).items()}
-    grads = []
-    for remat in (False, True):
-        cfg = dataclasses.replace(tcfg, remat=remat)
-        model = params_from_jax(host, cfg, "cpu").requires_grad_()
-        loss = get_model(cfg).loss_fn(model, cfg, batch,
-                                      TA.AttnMode(kind="full"))
-        loss.backward()
-        grads.append([loss.detach()] + [p.grad for p in model.parameters()])
-    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    cfg = dataclasses.replace(tcfg, remat=remat, remat_mode=mode)
+    model = params_from_jax(host, cfg, "cpu").requires_grad_()
+    loss = get_model(cfg).loss_fn(model, cfg, batch, TA.AttnMode(kind="full"))
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in model.parameters()]
+
+
+@pytest.mark.parametrize("mode", ["none", "nothing", "dots"])
+def test_remat_changes_no_number_in_the_encoder_decoder(mode):
+    """cfg.remat wraps each encoder and decoder layer in
+    torch.utils.checkpoint as ``remat_mode`` says: the same loss and
+    gradients, bit for bit."""
+    assert all(torch.equal(a, b) for a, b in zip(
+        _encdec_remat_grads(False, "none"), _encdec_remat_grads(True, mode)))
 
 
 def test_encdec_checkpoint_crosses_packages(tmp_path):
