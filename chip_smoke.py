@@ -359,7 +359,8 @@ def profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, launched = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
             launched += 1
@@ -375,6 +376,35 @@ def profile(fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out["top"] = [[k[:80], v] for k, v in top]
     return out
+
+
+def range_device_ms(fn, name: str) -> dict:
+    """One run of ``fn`` under torch.profiler, host and device traced: the
+    number of profiler ranges called ``name`` it opened and the device time
+    of the kernels launched inside them (each kernel's duration, found by
+    its launch's correlation with a host op inside the range, summed over
+    the ranges).  A separate run from :func:`profile`'s, whose idle share
+    host tracing would raise."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+
+    def kernel_us(e):
+        # the range's own device-side annotation is not a kernel
+        return sum(k.duration for k in e.kernels if k.name != name) + \
+            sum(kernel_us(c) for c in e.cpu_children)
+    ranges = [e for e in prof.events()
+              if e.name == name and e.device_type ==
+              torch.autograd.DeviceType.CPU]
+    total = sum(kernel_us(e) for e in ranges) / 1e3
+    return {"count": len(ranges),
+            "device_ms": total if total else "not measured",
+            "timed_by": "torch.profiler: the device kernels launched inside "
+                        f"the {name!r} ranges of one more run"}
 
 
 # ---------------------------------------------------------------------------
@@ -675,15 +705,20 @@ def _attention_spec():
             # (f32) and train_hybrid's forward (1 x 2048, among the first)
             *serve_shapes(zamba, SERVE_PROMPTS),
             *f32_shapes(zamba),
-            # serve_dist: each data rank's prefill of SERVE_DIST_ROWS /
-            # DIST_GRID[0] rows (bf16, and serve_dist_f32's qwen3-8b and
-            # qwen2-moe in f32), and one rank's f32 prefill of all the rows
-            *((b, h, kh, SERVE_DIST_PROMPT, SERVE_DIST_PROMPT, 128, dtype,
-               True)
+            # serve_dist: each (data, model) rank's prefill of its
+            # SERVE_DIST_ROWS / DIST_GRID[0] rows on its H / DIST_GRID[1]
+            # heads (bf16, and serve_dist_f32's qwen3-8b and qwen2-moe in
+            # f32), the same rows on all the heads (serve_dist_f32's
+            # tensor_parallel=False) and one rank's f32 prefill of all the
+            # rows
+            *((b, h // m, kh // m, SERVE_DIST_PROMPT, SERVE_DIST_PROMPT,
+               128, dtype, True)
               for h, kh, dtype in ((*qwen3[:2], bf16), (*qwen3[:2], f32),
                                    (16, 16, f32))
-              for b in {SERVE_DIST_ROWS // DIST_GRID[0], SERVE_DIST_ROWS}
-              if dtype == f32 or b < SERVE_DIST_ROWS),
+              for b, m in ((SERVE_DIST_ROWS // DIST_GRID[0], DIST_GRID[1]),
+                           (SERVE_DIST_ROWS // DIST_GRID[0], 1),
+                           (SERVE_DIST_ROWS, 1))
+              if dtype == f32 or m > 1),
         ))),
         # the dense prefill's shape (the summary line's), then a 2048-token
         # prefill of qwen2-moe and of llama4-maverick, internvl2-1b's
@@ -2567,16 +2602,21 @@ def _rank_bytes(state, info, grid) -> dict:
 
 def phase_train_dist(specs, records):
     """qwen3-8b at its published widths in bf16, TRAIN_QWEN3_LAYERS of its
-    layers, on a DIST_GRID mesh of logical ranks of cuda:0, TRAIN_STEPS
-    steps on one batch of DIST_BATCH x TRAIN_SEQ tokens: the loss falls,
-    flash_attention once per layer per forward per data rank (twice under
-    remat), peak memory under 80 GB, each rank's bytes its share.  Then the
+    layers, on a DIST_GRID mesh of logical ranks of cuda:0, the model axis
+    splitting compute, TRAIN_STEPS steps on one batch of DIST_BATCH x
+    TRAIN_SEQ tokens: the loss falls, flash_attention once per layer per
+    forward per (data, model) rank (twice under remat), peak memory under
+    80 GB, each rank's bytes its share, each model rank's working slice
+    the dry run's; one more step profiled, and one more traced for the
+    device time of its model-rank sums.  Then the
     step's checkpoint restored onto each of DIST_RESTORE_GRIDS bit-equal,
     and one step on (1, 4)."""
     import dataclasses
     import tempfile
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
+    from repro_torch.distributed.context import SUM_RANGE
     from repro_torch.distributed.sharding import flat_paths
+    from repro_torch.launch.dryrun import step_bytes
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import make_concrete_batch, train_batch_shapes
     from repro_torch.train import checkpoint as ckpt
@@ -2596,7 +2636,11 @@ def phase_train_dist(specs, records):
         return Trainer(cfg, ParallelConfig(), shape, ocfg,
                        mesh=make_local_mesh(*g, device=CARD), ckpt_dir=ckdir)
     remat = 2 if cfg.remat else 1
-    per_step = cfg.n_layers * grid[0] * remat
+    per_step = cfg.n_layers * grid[0] * grid[1] * remat
+    # one model rank's working slice and its f32 accumulator, by the dry
+    # run's arithmetic for this cell
+    dry_working = step_bytes(cfg, shape, make_local_mesh(
+        *grid, device="meta"), ParallelConfig())[0]["working_bytes"]
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as ckdir:
@@ -2626,9 +2670,19 @@ def phase_train_dist(specs, records):
                        .values())
         del tree
         saved = _unsharded(tr, state)
-        # one more step under the profiler (the state moves past the save)
+        # one more step under the profiler, and one more traced for the
+        # model-rank sums (their results dropped: the state stays the
+        # saved step's)
         prof = profile(lambda: tr.bundle.fn(state.params, state.opt_state,
                                             batch))
+        step_sums = range_device_ms(lambda: tr.bundle.fn(
+            state.params, state.opt_state, batch), SUM_RANGE)
+        slices = _slice_bytes(tr.bundle.info["working"](
+            torch.device("meta")), acc=True)
+        if any(b != dry_working for b in slices):
+            raise AssertionError(f"working slices and accumulators of "
+                                 f"{slices} bytes, the dry run's "
+                                 f"{dry_working}")
         del state, tr
         free_device_memory()
         restores = []
@@ -2664,6 +2718,9 @@ def phase_train_dist(specs, records):
             "losses": losses, "step_ms": step_ms,
             "tokens_per_s": DIST_BATCH * TRAIN_SEQ / step_ms * 1e3,
             "peak_gb": peak_gb, "rank_bytes": rank_bytes,
+            "working_gb_per_model_rank": [b / 1e9 for b in slices],
+            "dry_run_working_gb": dry_working / 1e9,
+            "model_rank_sums": {"step": step_sums},
             "flash_attention_launches_per_step": per_step,
             "profile_step": prof, "unshard_s": unshard_s, "save_s": save_s,
             "restores": restores, "launches": counts}
@@ -2671,8 +2728,10 @@ def phase_train_dist(specs, records):
 
 def phase_train_dist_f32(specs, records):
     """qwen3-8b's widths with DIST_F32_LAYERS layers in float32 (TF32 off):
-    the same parameters and batches to a DIST_GRID trainer and a one-rank
-    trainer, DIST_F32_STEPS steps: losses within DIST_F32_RTOL relative."""
+    the same parameters and batches to a DIST_GRID trainer (the model axis
+    splitting compute), to one with tensor_parallel=False and to a
+    one-rank trainer, DIST_F32_STEPS steps: each mesh's losses within
+    DIST_F32_RTOL relative of one rank's."""
     import dataclasses
     from repro_torch.configs import ParallelConfig, ShapeConfig, get_config
     from repro_torch.launch.mesh import make_local_mesh
@@ -2697,32 +2756,41 @@ def phase_train_dist_f32(specs, records):
                                                       TRAIN_SEQ),
                                    np.random.default_rng(i), cfg.vocab_size,
                                    CARD) for i in range(steps)]
+    runs = {"split": (grid, ParallelConfig()),
+            "tensor_parallel_off": (grid, ParallelConfig(
+                tensor_parallel=False)),
+            "one_rank": ((1, 1), ParallelConfig())}
     losses, walls = {}, {}
     free_device_memory()
     with MainPath(specs, records, ("flash_attention",)) as mp:
-        for g in (grid, (1, 1)):
-            tr = Trainer(cfg, ParallelConfig(), shape, ocfg,
+        for k, (g, parallel) in runs.items():
+            tr = Trainer(cfg, parallel, shape, ocfg,
                          mesh=make_local_mesh(*g, device=CARD))
-            (_, losses[g]), walls[g] = wall(lambda: tr.fit(
-                batches, steps, tr.state_from_jax(tree), log_every=0))
+            # the state is dropped with the trainer: two runs' states and
+            # moments at once would not fit beside the third's step
+            losses[k], walls[k] = wall(lambda: tr.fit(
+                batches, steps, tr.state_from_jax(tree), log_every=0)[1])
             del tr
             free_device_memory()
     counts = mp.counts()
-    want = steps * cfg.n_layers * (grid[0] + 1) * (2 if cfg.remat else 1)
+    want = steps * cfg.n_layers * (grid[0] * grid[1] + grid[0] + 1) \
+        * (2 if cfg.remat else 1)
     if counts["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched "
                              f"{counts['flash_attention']} times, not {want}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[grid],
-                                                   losses[(1, 1)]))
-    if rel > DIST_F32_RTOL:
-        raise AssertionError(f"the mesh's losses differ by {rel} relative")
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(losses[k],
+                                                       losses["one_rank"]))
+           for k in ("split", "tensor_parallel_off")}
+    if max(rel.values()) > DIST_F32_RTOL:
+        raise AssertionError(f"the meshes' losses differ by {rel} relative")
     return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers, "dtype": "float32",
             "tf32": False, "mesh": list(grid), "batch": DIST_BATCH,
             "seq": TRAIN_SEQ, "steps": steps,
-            "losses_mesh": losses[grid], "losses_one_rank": losses[(1, 1)],
+            "losses_mesh": losses["split"],
+            "losses_tensor_parallel_off": losses["tensor_parallel_off"],
+            "losses_one_rank": losses["one_rank"],
             "max_rel_diff": rel, "tolerance": DIST_F32_RTOL,
-            "wall_s": {str(list(g)): s for g, s in walls.items()},
-            "launches": counts}
+            "wall_s": walls, "launches": counts}
 
 
 def phase_moe_ep(gen) -> dict:
@@ -2842,23 +2910,34 @@ def _greedy_feed(logits, info, mesh, position: int) -> dict:
                                     dtype=torch.int32, device=whole.device)}
 
 
+def _slice_bytes(work, acc: bool = False) -> list:
+    """Each model rank's working slice, in bytes (``acc``: with an f32
+    gradient accumulator of the same shapes)."""
+    return [sum(t.numel() * (t.element_size() + 4 * acc)
+                for t in m.parameters()) for m in work.slices]
+
+
 def phase_serve_dist(specs, records):
     """qwen3-8b whole at its published widths in bf16, sharded by
-    shard_model onto a DIST_GRID mesh of logical ranks of cuda:0:
+    shard_model onto a DIST_GRID mesh of logical ranks of cuda:0, the
+    model axis splitting compute (heads, ff columns, vocabulary):
     make_prefill_step on SERVE_DIST_ROWS prompts of SERVE_DIST_PROMPT
-    tokens (timed SERVE_DIST_PREFILLS times, then once profiled), then
-    SERVE_DIST_NEW greedy steps of make_decode_step on its blocks (the
-    last one profiled).  Each rank's bytes equal the
-    dry run's for the same cells, flash_attention once per layer per data
-    rank a prefill step, peak under 80 GB."""
+    tokens (timed SERVE_DIST_PREFILLS times, then once profiled and once
+    traced for the device time of its model-rank sums), then
+    SERVE_DIST_NEW greedy steps of make_decode_step on its blocks (the last
+    one profiled, then run again, traced, for its sums: a decode step
+    writes the same cache rows each time).  Each rank's bytes and each
+    model rank's working
+    slice equal the dry run's for the same cells, flash_attention once per
+    layer per (data, model) rank a prefill step, peak under 80 GB."""
     from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.distributed.context import SUM_RANGE
     from repro_torch.distributed.steps import (gather_model,
                                                make_decode_step,
                                                make_prefill_step,
                                                shard_model)
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import (make_concrete_batch,
-                                    prefill_batch_shapes, registry)
+    from repro_torch.models import make_concrete_batch, prefill_batch_shapes
     cfg = get_config(SERVE_ARCH)
     shapes = _dist_shapes()
     dry = _dry_runs(cfg, shapes)
@@ -2874,7 +2953,7 @@ def phase_serve_dist(specs, records):
     batch = make_concrete_batch(prefill_batch_shapes(
         cfg, SERVE_DIST_ROWS, SERVE_DIST_PROMPT), np.random.default_rng(0),
         cfg.vocab_size, CARD)
-    per_step = cfg.n_layers * DIST_GRID[0]
+    per_step = cfg.n_layers * DIST_GRID[0] * DIST_GRID[1]
     torch.cuda.reset_peak_memory_stats()
     with MainPath(specs, records, ("flash_attention",)) as mp:
         prefill_s = []
@@ -2882,8 +2961,11 @@ def phase_serve_dist(specs, records):
             cache = logits = None
             (cache, logits), s = wall(lambda: prefill.fn(params, batch))
             prefill_s.append(s)
-        # one more prefill step under the profiler (its results dropped)
+        # one more prefill step under the profiler, and one more traced
+        # for the model-rank sums (their results dropped)
         prof_prefill = profile(lambda: prefill.fn(params, batch))
+        prefill_sums = range_device_ms(lambda: prefill.fn(params, batch),
+                                       SUM_RANGE)
         prefill_launches = mp.counts()["flash_attention"]
         decode_s, tokens, out = [], [], {}
         for t in range(SERVE_DIST_NEW):
@@ -2897,13 +2979,15 @@ def phase_serve_dist(specs, records):
             else:                     # the last step under the profiler
                 prof_decode = profile(lambda: out.update(
                     step=decode.fn(params, feed, cache)))
+                decode_sums = range_device_ms(
+                    lambda: decode.fn(params, feed, cache), SUM_RANGE)
                 logits, cache = out.pop("step")
     counts = mp.counts()
     peak = torch.cuda.max_memory_allocated()
-    if prefill_launches != per_step * (SERVE_DIST_PREFILLS + 1) or \
+    if prefill_launches != per_step * (SERVE_DIST_PREFILLS + 2) or \
             counts["flash_attention"] != prefill_launches:
         raise AssertionError(f"flash_attention launched {prefill_launches} "
-                             f"times in {SERVE_DIST_PREFILLS + 1} prefill "
+                             f"times in {SERVE_DIST_PREFILLS + 2} prefill "
                              f"steps of {per_step}, "
                              f"{counts['flash_attention']} in all")
     whole = torch.stack([torch.as_tensor(x) for x in tokens])
@@ -2927,13 +3011,20 @@ def phase_serve_dist(specs, records):
             raise AssertionError(f"rank bytes {r} (logits {lb}), the dry run"
                                  f" {dd['argument_parts']} and "
                                  f"{dp['output_parts']}")
-    # the gather alone: a working model filled from every rank's blocks
-    working = registry.meta_model(cfg).to_empty(device=CARD)
-    gather_s = [wall(lambda: gather_model(working, params,
-                                          prefill.info["layout"],
-                                          prefill.info["pspecs"], mesh))[1]
-                for _ in range(3)]
-    del working, params, cache, logits
+    # the gather alone: the working slices filled from every rank's blocks
+    info = prefill.info
+    work = info["working"](torch.device(CARD))
+    slice_bytes = _slice_bytes(work)
+    if any(b != dp["working_bytes"] for b in slice_bytes):
+        raise AssertionError(f"working slices of {slice_bytes} bytes, the "
+                             f"dry run's {dp['working_bytes']}")
+
+    def gather_all():
+        for m, model in enumerate(work.slices):
+            gather_model(model, params, info["layout"], info["pspecs"],
+                         mesh, info["slices"], m)
+    gather_s = [wall(gather_all)[1] for _ in range(3)]
+    del work, params, cache, logits
     free_device_memory()
     temp = max(dp["temp_bytes"], dd["temp_bytes"])
     return {"arch": SERVE_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -2946,21 +3037,32 @@ def phase_serve_dist(specs, records):
             "decode_ms": statistics.median(decode_s) * 1e3,
             "decode_ms_first_last": [decode_s[0] * 1e3, decode_s[-1] * 1e3],
             "gather_ms": statistics.median(gather_s) * 1e3,
+            "working_gb_per_model_rank": [b / 1e9 for b in slice_bytes],
+            "dry_run_working_gb": dp["working_bytes"] / 1e9,
+            "model_rank_sums": {"prefill": prefill_sums,
+                                "decode": decode_sums},
             "peak_gb": peak / 1e9,
             "rank_bytes": ranks[0], "rank_bytes_equal_dry_run": True,
             "dry_run": {k: {"argument_bytes": v["memory"]["argument_bytes"],
                             "working_bytes": v["memory"]["working_bytes"],
                             "temp_bytes": v["memory"]["temp_bytes"],
-                            "flops_per_data_rank": v["flops_per_data_rank"],
+                            "flops_per_rank": v["flops_per_rank"],
                             "all_gather_bytes": v["collectives"]["per_op"][
                                 "all-gather"]["traffic_bytes"],
                             "pass_s": v["timing"]["pass_s"]}
                         for k, v in dry.items()},
             "predicted_gb_per_device": (dd["argument_bytes"]
                                         + dd["working_bytes"] + temp) / 1e9,
+            # the card holds every rank's blocks and one working slice a
+            # model rank
             "predicted_gb_this_card": (mesh.size * dd["argument_bytes"]
-                                       + dd["working_bytes"] + temp) / 1e9,
+                                       + DIST_GRID[1] * dd["working_bytes"]
+                                       + temp) / 1e9,
             "flash_attention_launches_per_prefill": per_step,
+            "attention_shape_per_rank": [SERVE_DIST_ROWS // DIST_GRID[0],
+                                         cfg.n_heads // DIST_GRID[1],
+                                         cfg.n_kv_heads // DIST_GRID[1],
+                                         SERVE_DIST_PROMPT, cfg.head_dim],
             "profile_prefill_step": prof_prefill,
             "profile_decode_step": prof_decode,
             "tokens_row0": whole[:, 0].tolist(), "launches": counts}
@@ -3021,10 +3123,11 @@ def _dist_against_one_rank(cfg, parallel, gen_seed: int) -> dict:
 def phase_serve_dist_f32(specs, records):
     """qwen3-8b's widths at 2 layers in float32 (TF32 off) through the
     sharded prefill and decode steps on a DIST_GRID mesh against one
-    rank's prefill and decode_step from the same weights; then
-    qwen2-moe-a2.7b at 2 layers under moe_impl="shardmap" at the capacity
-    factor n_experts / top_k (no pair drops) the same way, its KV cache in
-    the superblock layout."""
+    rank's prefill and decode_step from the same weights, the model axis
+    splitting compute and, again, with tensor_parallel=False (whole
+    working models); then qwen2-moe-a2.7b at 2 layers under
+    moe_impl="shardmap" at the capacity factor n_experts / top_k (no pair
+    drops) the same way, its KV cache in the superblock layout."""
     import dataclasses
     from repro_torch.configs import ParallelConfig, get_config
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3037,12 +3140,16 @@ def phase_serve_dist_f32(specs, records):
     free_device_memory()
     with MainPath(specs, records, ("flash_attention",)) as mp:
         res = {"dense": _dist_against_one_rank(dense, ParallelConfig(), 1),
+               "dense_tensor_parallel_off": _dist_against_one_rank(
+                   dense, ParallelConfig(tensor_parallel=False), 1),
                "moe_shardmap": _dist_against_one_rank(
                    moe, ParallelConfig(moe_impl="shardmap"), 2)}
     counts = mp.counts()
-    # each model's prefill: once a layer on each of 2 data ranks and once
-    # a layer on one rank
-    want = 2 * (DIST_GRID[0] + 1) * 2
+    # each prefill: once a layer on each (data, model) rank (on each data
+    # rank where the model axis does not split), and once a layer on one
+    # rank; both models' heads split over DIST_GRID[1]
+    ranks = DIST_GRID[0] * DIST_GRID[1]
+    want = 2 * ((ranks + 1) * 2 + DIST_GRID[0] + 1)
     if counts["flash_attention"] != want:
         raise AssertionError(f"flash_attention launched "
                              f"{counts['flash_attention']} times, not {want}")

@@ -359,20 +359,69 @@ def unshard(shards: list, spec, mesh, device=None, out=None,
     """Inverse of :func:`shard`: the whole tensor from the owner ranks'
     blocks, into ``out`` if given, else a new tensor on ``device`` (default:
     rank 0's shard's device)."""
+    return gather_block(shards, spec, mesh, {}, device, out, name)
+
+
+def model_split(spec, shape, mesh, m: int):
+    """(dim, slice): the dim of a leaf of ``shape`` that ``spec`` splits
+    over ``model`` and model rank m's slice of it; None where the spec
+    leaves the leaf whole over ``model``.  ``model`` sharing a dim with
+    another axis raises: no parameter spec does, and a rank's share of
+    such a dim is not one slice."""
+    for dim, entry in enumerate(spec):
+        names = _entry_axes(entry)
+        if TP_AXIS not in names:
+            continue
+        if names != (TP_AXIS,):
+            raise ValueError(f"spec {spec} puts {TP_AXIS!r} on dim {dim} "
+                             f"with {names}")
+        step = shape[dim] // mesh_axis_size(mesh, TP_AXIS)
+        return dim, slice(m * step, (m + 1) * step)
+    return None
+
+
+def block_of(x: torch.Tensor, spec, mesh, rank: int, name: str = ""):
+    """Rank ``rank``'s block of ``x`` under ``spec``, a view of ``x``
+    (:func:`shard` gives every rank's, as copies on their devices)."""
+    axes = _check(x.shape, spec, mesh, name)
+    return x[_block(x.shape, axes, mesh_sizes(mesh),
+                    rank_coords(mesh)[rank])]
+
+
+def gather_block(shards: list, spec, mesh, coords: dict, device=None,
+                 out=None, name: str = "") -> torch.Tensor:
+    """The block of a leaf at ``coords`` on the axes it names, whole over
+    every other axis (model rank m's block: ``{"model": m}``; the whole
+    leaf: ``{}``), from the owner blocks of the ranks at those coordinates,
+    into ``out`` if given, else a new tensor on ``device`` (default: the
+    first such rank's block's).  A spec that does not fit the leaf or the
+    mesh raises, naming ``name``."""
     sizes = mesh_sizes(mesh)
-    first = shards[0]
+    coords_of = rank_coords(mesh)
+    ranks_at = [r for r, c in enumerate(coords_of)
+                if all(c[a] == v for a, v in coords.items())]
+    first = shards[ranks_at[0]]
     used = [_entry_axes(e) for e in spec] + [()] * (first.dim() - len(spec))
-    shape = tuple(d * math.prod(sizes[a] for a in names)
+    whole = tuple(d * math.prod(sizes.get(a, 1) for a in names)
                   for d, names in zip(first.shape, used))
-    axes = _check(shape, spec, mesh, name)
+    _check(whole, spec, mesh, name)
+    for names in used:
+        if len(names) > 1 and set(names) & set(coords):
+            raise ValueError(f"{name}: spec {spec} pairs an axis of "
+                             f"{tuple(coords)} with another on one dim")
+    rest = [tuple(a for a in names if a not in coords) for names in used]
+    shape = tuple(d * math.prod(sizes[a] for a in names)
+                  for d, names in zip(first.shape, rest))
     if out is None:
         out = torch.empty(shape, dtype=first.dtype,
                           device=first.device if device is None else device)
     elif tuple(out.shape) != shape:
         raise ValueError(f"{name}: out {tuple(out.shape)}, not {shape}")
-    coords = rank_coords(mesh)
-    for r in owners(spec, mesh):
-        out[_block(shape, axes, sizes, coords[r])].copy_(shards[r])
+    spec_axes = {a for names in used for a in names} | set(coords)
+    for r in ranks_at:
+        c = coords_of[r]
+        if all(c[a] == 0 for a in c if a not in spec_axes):
+            out[_block(shape, rest, sizes, c)].copy_(shards[r])
     return out
 
 

@@ -9,11 +9,13 @@ The JAX dry run compiles each cell ahead of time on 512 host devices and
 reads XLA's memory and cost analyses.  The port has no compiler: it
 builds the cell's step (``distributed/steps.py::make_step``) on the
 production mesh's logical ranks on ``meta`` (``launch/mesh.py``), takes
-each rank's bytes from the specs, and runs one data rank's pass (the
-step's own ``data_pass``) on ``meta`` tensors, which hold shapes and
+each rank's bytes from the specs, and runs one (data, model) rank's part
+of a data rank's pass (the step's own ``data_pass`` with ``share=0``:
+model rank 0's heads, ff columns, experts and vocabulary slice, and what
+the data rank computes whole) on ``meta`` tensors, which hold shapes and
 dtypes and no storage.  It needs no subprocess and no XLA flags, runs on
-the CPU and touches no card.  One data rank's pass stands for all of
-them: every data rank's has the same shapes.
+the CPU and touches no card.  One rank's part stands for all of them:
+every (data, model) rank's has the same shapes.
 
 Each cell's JSON (under ``artifacts/dryrun_torch/``) has the JAX keys
 where they mean the same thing (``arch``, ``shape``, ``mesh``, ``kind``,
@@ -28,23 +30,30 @@ device with one rank a device, and:
   rules, with their ``*_parts``; ``alias_bytes``, the outputs written into
   their arguments' storage (the train step's state, the decode step's
   cache);
-* ``memory.working_bytes``, the port's own term: the working model
-  gathered on every device that runs a data rank, plus the train step's
-  f32 gradient accumulator.  The JAX package has no such term;
-* ``memory.temp_bytes``: the peak of live bytes over one data rank's pass
-  (forward and backward for train, the prefill, one decode step with its
-  rows of the cache gathered), measured by :class:`LiveBytes`;
+* ``memory.working_bytes``, the port's own term: one model rank's
+  working slice (``steps.SlicePlan``: each leaf's bytes over its split
+  over ``model``, a leaf the spec leaves whole over ``model`` whole),
+  plus the train step's f32 gradient accumulator of the same shapes.
+  The JAX package has no such term;
+* ``memory.temp_bytes``: the peak of live bytes over one (data, model)
+  rank's part of the pass (forward and backward for train, the prefill,
+  one decode step with its rows of any cache leaf not split on its heads
+  gathered), measured by :class:`LiveBytes`.  On ``meta`` every model
+  rank's tensors would be made in this one process, so the pass computes
+  model rank 0's part alone (``share=0``: the others' parts are skipped,
+  their sums take rank 0's part only) and what it allocates is one
+  rank's;
 * ``memory.fits_h100``: argument + output - alias + working + temp
   against 80 GiB;
 * ``collectives.per_op``: the bytes a device receives in the step's
   explicit gathers and reduce-scatters, from the specs: ``all-gather``
-  for the parameters (and the decode step's cache), ``reduce-scatter``
-  for the train step's f32 gradients (``(data ranks - 1)`` x the rank's
-  f32 block, the JAX artifact's ring formula);
-* ``flops_per_data_rank``: ``torch.utils.flop_counter.FlopCounterMode``
-  over the same pass (its matrix products).  ``model`` does not divide
-  it: a data rank's pass runs on the gathered whole parameters
-  (``steps.py``'s docstring).
+  for the working slice (and the decode step's cache leaves not split on
+  their heads), ``reduce-scatter`` for the train step's f32 gradients
+  (``(data ranks - 1)`` x the rank's f32 block, the JAX artifact's ring
+  formula).  The model-rank sums inside the pass are not counted;
+* ``flops_per_rank``: ``torch.utils.flop_counter.FlopCounterMode`` over
+  the same part of the pass (its matrix products): one (data, model)
+  rank's.
 
 On ``meta`` the attention takes the model's plain path and the kernel
 wrappers their plain versions, except ``ssm_scan``, which gives its
@@ -149,16 +158,20 @@ def step_bytes(cfg, shape, mesh, parallel) -> tuple:
     bundle = make_step(cfg, mesh, parallel, shape)
     info = bundle.info
     layout, pspecs, dtype = info["layout"], info["pspecs"], info["dtypes"]
+    plan = info["slices"]
     params = sum(_bytes(shp, dtype[p], pspecs[p], mesh)
                  for p, (shp, _) in layout.items())
-    n_params = sum(math.prod(shp) for shp, _ in layout.values())
-    whole = sum(math.prod(shp) * dtype[p].itemsize
+    # one model rank's working slice: each leaf over its split in it
+    n_params = sum(math.prod(shp) // plan.split(p)
+                   for p, (shp, _) in layout.items())
+    whole = sum(math.prod(shp) // plan.split(p) * dtype[p].itemsize
                 for p, (shp, _) in layout.items())
     batch = sum(_bytes(shp, dt, info["bspecs"][k], mesh)
                 for k, (shp, dt) in batch_shapes(cfg, shape).items())
-    gather = {"count": sum(_split(s, mesh) > 1 for s in pspecs.values()),
+    gather = {"count": sum(_split(pspecs[p], mesh) > plan.split(p)
+                           for p in layout),
               "traffic_bytes": sum(
-                  math.prod(shp) * dtype[p].itemsize
+                  math.prod(shp) // plan.split(p) * dtype[p].itemsize
                   - _bytes(shp, dtype[p], pspecs[p], mesh)
                   for p, (shp, _) in layout.items())}
     per_op = {"all-gather": gather}
@@ -193,16 +206,19 @@ def step_bytes(cfg, shape, mesh, parallel) -> tuple:
         else:
             args["cache"] = cache
             outs, alias = {"logits": logits, "cache": cache}, cache
-            # each data rank's rows of the cache, gathered from its ranks
+            # each data rank's rows of the cache leaves not split on their
+            # heads, gathered from its ranks
             rows = _data_rows(shape.global_batch, info)
+            gathered = {p: t for p, t in cache_shape.items()
+                        if p not in info["own"]}
             per_op["all-gather"] = {
                 "count": gather["count"] + sum(
-                    _split(s, mesh) > 1 for s in info["cspecs"].values()),
+                    _split(info["cspecs"][p], mesh) > 1 for p in gathered),
                 "traffic_bytes": gather["traffic_bytes"] + sum(
                     math.prod(t.shape) * t.dtype.itemsize * rows
                     // shape.global_batch
                     - _bytes(t.shape, t.dtype, info["cspecs"][p], mesh)
-                    for p, t in cache_shape.items())}
+                    for p, t in gathered.items())}
     return {"argument_bytes": sum(args.values()), "argument_parts": args,
             "output_bytes": sum(outs.values()), "output_parts": outs,
             "alias_bytes": alias, "working_bytes": working,
@@ -288,8 +304,9 @@ def depth_cfg(cfg, groups: int):
 
 
 def run_pass(cfg, shape, mesh, parallel) -> dict:
-    """Data rank 0's pass of the step on ``meta``: its temp bytes (the
-    peak of what the pass allocates) and its FLOPs, at the config's depth.
+    """Rank (0, 0)'s part of data rank 0's pass of the step on ``meta``:
+    its temp bytes (the peak of what the part allocates) and its FLOPs, at
+    the config's depth.
 
     A prefill or decode pass holds the cache at its full depth from its
     start (the decode step's gathered rows too) and one layer's
@@ -323,25 +340,28 @@ def run_pass(cfg, shape, mesh, parallel) -> dict:
 def _pass_at(cfg, shape, mesh, parallel) -> dict:
     bundle = make_step(cfg, mesh, parallel, shape)
     info = bundle.info
-    model = registry.meta_model(cfg).requires_grad_(shape.kind == "train")
+    work = info["working"](torch.device("meta"))
+    for model in work.slices:
+        model.requires_grad_(shape.kind == "train")
     rows = _data_rows(shape.global_batch, info)
     batch = _meta_batch(batch_shapes(cfg, shape), rows)
     split = rows != shape.global_batch
-    named = dict(model.named_parameters())
-    exclude = list(named.values()) + list(batch.values())
+    exclude = [t for model in work.slices for t in model.parameters()] \
+        + list(batch.values())
     if shape.kind == "train":
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device="meta")
-               for k, p in named.items()}
-        exclude += list(acc.values())
+        accs = [{k: torch.zeros(p.shape, dtype=torch.float32, device="meta")
+                 for k, p in model.named_parameters()}
+                for model in work.slices]
+        exclude += [a for acc in accs for a in acc.values()]
         n = parallel.microbatches * (info["ranks"].n if split else 1)
         micro = {k: v[:rows // parallel.microbatches]
                  for k, v in batch.items()}
 
         def run():
-            info["data_pass"](0, model, named, acc, micro, n)
+            info["data_pass"](0, work, accs, micro, n, share=0)
     elif shape.kind == "prefill":
         def run():
-            info["data_pass"](0, model, batch)
+            info["data_pass"](0, work, batch, share=0)
     else:
         members = (info["ranks"].members[0] if split
                    else range(mesh.size))
@@ -349,7 +369,7 @@ def _pass_at(cfg, shape, mesh, parallel) -> dict:
         exclude += [t for b in blocks if b for t in b.values()]
 
         def run():
-            info["data_pass"](0, model, batch, blocks, split)
+            info["data_pass"](0, work, batch, blocks, split, share=0)
     # each pass allocates the position tables it reads, as a process's
     # first step does (whisper's decoder keeps one a length, layers.py)
     _sinusoid_table.cache_clear()
@@ -422,7 +442,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
                           - mem["alias_bytes"] + mem["working_bytes"]
                           + mem["temp_bytes"])
     mem["fits_h100"] = mem["total_bytes"] <= H100_BYTES
-    result["flops_per_data_rank"] = p["flops"]
+    result["flops_per_rank"] = p["flops"]
     timing["pass_s"] = p["pass_s"]
     _write(result, out_path)
     if verbose:

@@ -17,14 +17,27 @@ so the CPU tests compare like with like; ``cache_batch_axes`` probes on the
 The decode path attends one new token against a padded KV cache with
 per-batch lengths, in plain PyTorch (the JAX package computes it outside any
 Pallas kernel too).
+
+Inside a model group that splits ``wq``'s heads over ``model``
+(``distributed/context.py``), :func:`over_heads` runs an attention
+layer once a model rank on its :class:`HeadShare`: rank m's q heads
+``[m H/m', (m+1) H/m')`` and ``wo`` rows, and the kv heads those q heads
+read under GQA's grouping: its own block of ``wk``/``wv`` where their spec
+splits K, else those heads sliced from the replicated weights.  The
+partial outputs are summed.  A cache leaf whose spec splits K is held one
+block a rank (a list, :func:`kv_zeros`); any other is whole, and each
+rank reads and writes its kv heads in it (:meth:`HeadShare.of`).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed.context import (is_split, model_size,
+                                             model_sum, over_model, twins)
 from repro_torch.kernels.flash_attention.ops import FlashAttention
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        rms_norm, rope_sincos)
@@ -43,15 +56,19 @@ def attn_init(gen, d_model, n_heads, n_kv_heads, head_dim, qk_norm, dtype):
     return p
 
 
-def qkv_project(p, x, positions, theta, qk_norm, norm_eps):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,K,hd) with RoPE applied."""
+def qkv_project(p, x, positions, theta, qk_norm, norm_eps, rope=None):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,K,hd) with RoPE applied.
+    ``rope``: the (sin, cos) tables of ``positions``
+    (``layers.rope_sincos``), where the caller built them once for all of
+    a layer's head shares."""
     q = dense(x, p["wq"])
     k = dense(x, p["wk"])
     v = dense(x, p["wv"])
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
-    sin, cos = rope_sincos(positions, q.shape[-1], theta)
+    sin, cos = rope_sincos(positions, q.shape[-1], theta) if rope is None \
+        else rope
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
 
@@ -191,3 +208,84 @@ def attend_plain(q, k, v, *, causal, mode: AttnMode):
         return attend_full(q, k, v, causal=causal)
     return attend_blockwise(q, k, v, causal=causal, q_block=mode.q_block,
                             kv_block=mode.kv_block)
+
+
+# ----------------------------------------------------------------------------
+# heads split over the model ranks
+# ----------------------------------------------------------------------------
+class HeadShare(NamedTuple):
+    """One model rank's share of an attention layer: ``p`` its projections
+    (``wq``/``wo`` of its q heads, ``wk``/``wv`` of the kv heads they read,
+    the norms), its rank ``m`` and ``kv``, the slice of the whole cache's
+    kv heads it reads (None: the layer is not split, all of them)."""
+    p: Any
+    m: int
+    kv: slice | None
+
+    def of(self, cache):
+        """The rank's part of a cache leaf: its own block where the cache
+        is held one block a rank, else a view of its kv heads."""
+        if isinstance(cache, list):
+            return cache[self.m]
+        return cache if self.kv is None else cache[..., self.kv, :]
+
+
+def head_shares(p) -> list:
+    """Each model rank's :class:`HeadShare` of the layer ``p`` (the lead's
+    group); one share of the whole layer where ``wq``'s spec does not
+    split its heads."""
+    if not is_split(p["wq"]):
+        return [HeadShare(p, 0, None)]
+    groups = twins(p)
+    own = is_split(p["wk"])
+    shares = []
+    for m, q in enumerate(groups):
+        h = q["wq"].shape[-2]
+        if own:
+            k = q["wk"].shape[-2]
+            shares.append(HeadShare(q, m, slice(m * k, (m + 1) * k)))
+            continue
+        g = h * len(groups) // q["wk"].shape[-2]     # q heads a kv head
+        if h % g and g % h:
+            raise NotImplementedError(
+                f"{h} q heads a rank over kv groups of {g}: a rank's heads "
+                f"would read parts of several groups")
+        lo = m * h // g
+        kv = slice(lo, lo + max(h // g, 1))
+        shares.append(HeadShare({**dict(q.items()), "wk": q["wk"][:, kv],
+                                 "wv": q["wv"][:, kv]}, m, kv))
+    return shares
+
+
+def over_heads(p, fn) -> tuple:
+    """``fn(share) -> (partial output, extra)`` on each rank's share of the
+    layer ``p``: (the partial outputs summed, [(share, extra)] of each
+    rank computed)."""
+    shares = head_shares(p)
+    if len(shares) == 1:
+        out, extra = fn(shares[0])
+        return out, [(shares[0], extra)]
+    res = over_model(lambda m, s: fn(s), shares)
+    return (model_sum([r and r[0] for r in res]),
+            [(s, r[1]) for s, r in zip(shares, res) if r is not None])
+
+
+def store_kv(cache: tuple, idx: tuple, kvs: list):
+    """Write each share's keys and values (``over_heads``' extras) at
+    ``idx`` of the ``(k, v)`` cache leaves: into its own block, or into its
+    kv heads of the whole leaf."""
+    for share, new in kvs:
+        for c, t in zip(cache, new):
+            share.of(c)[idx] = t
+
+
+def kv_zeros(shape, dtype, device, wk=None):
+    """A zero cache leaf of ``shape`` (..., K, hd): one block of K a model
+    rank (a list; None for a rank a dry run does not compute) where the
+    lead's ``wk`` is split over ``model``, else whole."""
+    if wk is None or not is_split(wk):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    n = model_size()
+    block = tuple(shape[:-2]) + (shape[-2] // n, shape[-1])
+    return over_model(lambda m, _: torch.zeros(block, dtype=dtype,
+                                               device=device), range(n))

@@ -28,6 +28,12 @@ on axis 1 of each; ``decode_step`` writes the new token's keys and values
 into ``k``/``v`` in place and returns the cache.  The JAX ``prefill``
 computes the cross keys and values twice, for the layer and for the
 cache; this one computes them once (the same numbers).
+
+Inside a model group that splits the heads over ``model``
+(``attention.over_heads``), each attention (the encoder's, the decoder's
+self- and cross-attention) runs once a model rank on its heads and each
+MLP on its ff columns; the self cache ``k``/``v`` and the cross cache
+``xk``/``xv`` are held one block a rank where their specs split the heads.
 """
 from __future__ import annotations
 
@@ -36,11 +42,11 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, dense,
+from repro_torch.models.layers import (cross_entropy_loss, dense, each,
                                        embed_apply, embed_init, frozen,
                                        layer_stack,
                                        logits_apply, meta_groups, mlp_apply,
-                                       mlp_init, rms_norm,
+                                       mlp_init, rms_norm, rope_sincos,
                                        sinusoidal_positions, torch_dtype)
 
 
@@ -126,10 +132,13 @@ def _out(o, w):
 
 def _enc_layer(lp, x, cfg, mode):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a = lp["attn"]
-    o = attn.attend(_heads(h, a["wq"]), _heads(h, a["wk"]),
-                    _heads(h, a["wv"]), causal=False, mode=mode)
-    x = x + _out(o, a["wo"])
+
+    def share(s):
+        a = s.p
+        o = attn.attend(_heads(h, a["wq"]), _heads(h, a["wk"]),
+                        _heads(h, a["wv"]), causal=False, mode=mode)
+        return _out(o, a["wo"]), None
+    x = x + attn.over_heads(lp["attn"], share)[0]
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp_apply(lp["mlp"], h)
 
@@ -141,28 +150,37 @@ def encode(params, cfg, frames, mode: AttnMode = AttnMode()):
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
-def _cross_kv(lp, enc_out):
-    c = lp["cross"]
+def _cross_kv(c, enc_out):
     return _heads(enc_out, c["wk"]), _heads(enc_out, c["wv"])
 
 
 def _dec_layer(lp, x, enc_out, cfg, mode):
     """One decoder layer over a whole sequence (forward and prefill):
-    returns x and the layer's self (k, v) and cross (k, v)."""
+    returns x and each head share's self (k, v) and cross (k, v)
+    (``attention.over_heads``)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     b, s, _ = h.shape
     pos = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    q, k, v = attn.qkv_project(lp["self"], h, pos, cfg.rope_theta, False,
-                               cfg.norm_eps)
-    o = attn.attend(q, k, v, causal=True, mode=mode)
-    x = x + _out(o, lp["self"]["wo"])
+    rope = rope_sincos(pos, cfg.head_dim, cfg.rope_theta)
+
+    def self_share(sh):
+        q, k, v = attn.qkv_project(sh.p, h, pos, cfg.rope_theta, False,
+                                   cfg.norm_eps, rope)
+        o = attn.attend(q, k, v, causal=True, mode=mode)
+        return _out(o, sh.p["wo"]), (k, v)
+    out, kvs = attn.over_heads(lp["self"], self_share)
+    x = x + out
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    ek, ev = _cross_kv(lp, enc_out)
-    o = attn.attend(_heads(h, lp["cross"]["wq"]), ek, ev, causal=False,
-                    mode=mode)
-    x = x + _out(o, lp["cross"]["wo"])
+
+    def cross_share(sh):
+        ek, ev = _cross_kv(sh.p, enc_out)
+        o = attn.attend(_heads(h, sh.p["wq"]), ek, ev, causal=False,
+                        mode=mode)
+        return _out(o, sh.p["wo"]), (ek, ev)
+    out, xkvs = attn.over_heads(lp["cross"], cross_share)
+    x = x + out
     h = rms_norm(x, lp["ln3"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h), (k, v), (ek, ev)
+    return x + mlp_apply(lp["mlp"], h), kvs, xkvs
 
 
 def _dec_layer_x(lp, x, cfg, enc_out, mode):
@@ -181,20 +199,27 @@ def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
 def loss_fn(params, cfg, batch, mode: AttnMode = AttnMode()):
     logits = forward(params, cfg, batch, mode)
     mask = batch.get("loss_mask")
-    return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+    return cross_entropy_loss(each(lambda z: z[:, :-1], logits),
+                              batch["labels"][:, 1:],
                               None if mask is None else mask[:, 1:])
 
 
-def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None):
+def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None,
+               params=None):
+    """Zero caches; with ``params`` (a pass's lead slice) ``k``/``v`` and
+    ``xk``/``xv`` held one block a model rank where the self and cross
+    ``wk`` are split (``attention.kv_zeros``)."""
     dtype = torch_dtype(dtype or cfg.dtype)
     L = cfg.n_layers
     self_shape = (L, batch_size, smax, cfg.n_kv_heads, cfg.head_dim)
     cross_shape = (L, batch_size, cfg.n_encoder_frames, cfg.n_heads,
                    cfg.head_dim)
-    return {"k": torch.zeros(self_shape, dtype=dtype, device=device),
-            "v": torch.zeros(self_shape, dtype=dtype, device=device),
-            "xk": torch.zeros(cross_shape, dtype=dtype, device=device),
-            "xv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+    wk, xwk = (None, None) if params is None else (
+        params.decoder[0]["self"]["wk"], params.decoder[0]["cross"]["wk"])
+    return {"k": attn.kv_zeros(self_shape, dtype, device, wk),
+            "v": attn.kv_zeros(self_shape, dtype, device, wk),
+            "xk": attn.kv_zeros(cross_shape, dtype, device, xwk),
+            "xv": attn.kv_zeros(cross_shape, dtype, device, xwk)}
 
 
 def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
@@ -203,15 +228,15 @@ def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
     enc_out = encode(params, cfg, batch["frames"], mode)
     x = _posenc(embed_apply(params.embed, batch["tokens"]))
     b, s, _ = x.shape
-    cache = cache_init(cfg, b, smax, device=x.device)
+    cache = cache_init(cfg, b, smax, device=x.device, params=params)
     for i, lp in enumerate(params.decoder):
-        x, (k, v), (ek, ev) = _dec_layer(lp, x, enc_out, cfg, mode)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        cache["xk"][i] = ek
-        cache["xv"][i] = ev
+        x, kvs, xkvs = _dec_layer(lp, x, enc_out, cfg, mode)
+        attn.store_kv((cache["k"], cache["v"]), (i, slice(None),
+                                                  slice(None, s)), kvs)
+        attn.store_kv((cache["xk"], cache["xv"]), (i,), xkvs)
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return cache, logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0]
+    return cache, each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings))
 
 
 def decode_step(params, cfg, batch, cache):
@@ -220,23 +245,34 @@ def decode_step(params, cfg, batch, cache):
     ``cache`` in place; returns (logits, cache)."""
     tokens, positions = batch["tokens"], batch["positions"]
     x = embed_apply(params.embed, tokens)
-    pe = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
+    k0, xk0 = (c[0] if isinstance(c, list) else c
+               for c in (cache["k"], cache["xk"]))
+    pe = sinusoidal_positions(k0.shape[2], cfg.d_model, x.device)
     x = x + pe[positions][:, None].to(x.dtype)
-    lengths = torch.full((x.shape[0],), cache["xk"].shape[2],
+    lengths = torch.full((x.shape[0],), xk0.shape[2],
                          dtype=torch.int64, device=x.device)
+    rope = rope_sincos(positions[:, None], cfg.head_dim, cfg.rope_theta)
     for i, lp in enumerate(params.decoder):
-        sp = lp["self"]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(sp, h, positions[:, None], cfg.rope_theta,
-                                   False, cfg.norm_eps)
-        ck, cv = attn.cache_update(cache["k"][i], cache["v"][i], k, v,
-                                   positions)
-        x = x + _out(attn.attend_decode(q, ck, cv, positions + 1), sp["wo"])
+
+        def self_share(s):
+            q, k, v = attn.qkv_project(s.p, h, positions[:, None],
+                                       cfg.rope_theta, False, cfg.norm_eps,
+                                       rope)
+            ck, cv = attn.cache_update(s.of(cache["k"])[i],
+                                       s.of(cache["v"])[i], k, v, positions)
+            return _out(attn.attend_decode(q, ck, cv, positions + 1),
+                        s.p["wo"]), None
+        x = x + attn.over_heads(lp["self"], self_share)[0]
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        o = attn.attend_decode(_heads(h, lp["cross"]["wq"]), cache["xk"][i],
-                               cache["xv"][i], lengths)
-        x = x + _out(o, lp["cross"]["wo"])
+
+        def cross_share(s):
+            o = attn.attend_decode(_heads(h, s.p["wq"]), s.of(cache["xk"])[i],
+                                   s.of(cache["xv"])[i], lengths)
+            return _out(o, s.p["wo"]), None
+        x = x + attn.over_heads(lp["cross"], cross_share)[0]
         h = rms_norm(x, lp["ln3"], cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], h)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0], cache
+    return each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings)), cache

@@ -24,6 +24,12 @@ head_dim, N) in f32, each Mamba2 layer's state.  The batch axis is 1 of
 state from the same ``ssm_scan`` call that computes its output;
 ``decode_step`` writes the new keys, values, conv windows and states into
 the cache in place and returns it.
+
+Inside a model group that splits the shared block's heads and ff columns
+over ``model`` (``attention.over_heads``, ``layers.mlp_apply``), that
+block runs once a model rank, its ``k``/``v`` cache held one block a rank
+where the spec splits K; the JAX rules give the Mamba2 weights no
+``model`` split, so the Mamba2 layers run whole, once a data rank.
 """
 from __future__ import annotations
 
@@ -33,11 +39,12 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, dense,
+from repro_torch.models.layers import (cross_entropy_loss, dense, each,
                                        embed_apply, embed_init, frozen,
                                        layer_stack,
                                        logits_apply, meta_groups, mlp_apply,
-                                       mlp_init, rms_norm, torch_dtype)
+                                       mlp_init, rms_norm, rope_sincos,
+                                       torch_dtype)
 
 
 def _groups(cfg):
@@ -113,22 +120,27 @@ def init(gen, cfg, trainable: bool = False) -> HybridLM:
 def _shared_block(shared, x, positions, cfg, mode, cache=None,
                   write_pos=None):
     """The shared attention+MLP block.  Without ``cache``: causal attention
-    over x's tokens, returning their keys and values; with ``cache`` (a
-    group's (k, v) slot): one token a sequence written at ``write_pos``
-    and attended against the cache."""
+    over x's tokens, returning each head share's keys and values
+    (``attention.over_heads``); with ``cache`` (a group's (k, v) slot,
+    whole or one block a model rank): one token a sequence written at
+    ``write_pos`` and attended against the cache."""
     h = rms_norm(x, shared["ln1"], cfg.norm_eps)
-    q, k, v = attn.qkv_project(shared["attn"], h, positions, cfg.rope_theta,
-                               False, cfg.norm_eps)
-    if cache is None:
-        o = attn.attend(q, k, v, causal=True, mode=mode)
-        new_cache = (k, v)
-    else:
-        ck, cv = attn.cache_update(cache[0], cache[1], k, v, write_pos)
-        o = attn.attend_decode(q, ck, cv, write_pos + 1)
-        new_cache = (ck, cv)
-    x = x + dense(o, shared["attn"]["wo"], 2)
+    rope = rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
+
+    def share(s):
+        q, k, v = attn.qkv_project(s.p, h, positions, cfg.rope_theta, False,
+                                   cfg.norm_eps, rope)
+        if cache is None:
+            o = attn.attend(q, k, v, causal=True, mode=mode)
+        else:
+            ck, cv = attn.cache_update(s.of(cache[0]), s.of(cache[1]), k, v,
+                                       write_pos)
+            o = attn.attend_decode(q, ck, cv, write_pos + 1)
+        return dense(o, s.p["wo"], 2), (k, v)
+    out, kvs = attn.over_heads(shared["attn"], share)
+    x = x + out
     h = rms_norm(x, shared["ln2"], cfg.norm_eps)
-    return x + mlp_apply(shared["mlp"], h), new_cache
+    return x + mlp_apply(shared["mlp"], h), kvs
 
 
 def _mamba_layer(lp, x, cfg):
@@ -160,20 +172,26 @@ def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
 def loss_fn(params, cfg, batch, mode: AttnMode = AttnMode()):
     logits = forward(params, cfg, batch, mode)
     mask = batch.get("loss_mask")
-    return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+    return cross_entropy_loss(each(lambda z: z[:, :-1], logits),
+                              batch["labels"][:, 1:],
                               None if mask is None else mask[:, 1:])
 
 
 # ----------------------------------------------------------------------------
 # cache: per-group shared-attention KV + per-layer Mamba2 state
 # ----------------------------------------------------------------------------
-def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None):
+def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None,
+               params=None):
+    """Zero caches; with ``params`` (a pass's lead slice) ``k``/``v`` held
+    one block a model rank where the shared ``wk`` is split
+    (``attention.kv_zeros``)."""
     dtype = torch_dtype(dtype or cfg.dtype)
     g, p = _groups(cfg)
     kv = (g, batch_size, smax, cfg.n_kv_heads, cfg.head_dim)
     st = ssm.mamba2_state_init(batch_size, cfg, dtype, device)
-    return {"k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device),
+    wk = None if params is None else params.shared["attn"]["wk"]
+    return {"k": attn.kv_zeros(kv, dtype, device, wk),
+            "v": attn.kv_zeros(kv, dtype, device, wk),
             **{k: t.new_zeros((g, p) + t.shape) for k, t in st.items()}}
 
 
@@ -181,11 +199,11 @@ def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
     """Full forward over the prompt; returns (cache, last-token logits)."""
     x, positions = _embed(params, batch["tokens"])
     s = x.shape[1]
-    cache = cache_init(cfg, x.shape[0], smax, device=x.device)
+    cache = cache_init(cfg, x.shape[0], smax, device=x.device, params=params)
     for g, glayers in enumerate(params.layers):
-        x, (k, v) = _shared_block(params.shared, x, positions, cfg, mode)
-        cache["k"][g, :, :s] = k
-        cache["v"][g, :, :s] = v
+        x, kvs = _shared_block(params.shared, x, positions, cfg, mode)
+        attn.store_kv((cache["k"], cache["v"]), (g, slice(None),
+                                                  slice(None, s)), kvs)
         for p, lp in enumerate(glayers):
             y, st = ssm.mamba2_apply(lp, rms_norm(x, lp["ln"], cfg.norm_eps),
                                      cfg, return_state=True)
@@ -193,7 +211,8 @@ def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
             cache["h"][g, p] = st["h"]
             x = x + y
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return cache, logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0]
+    return cache, each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings))
 
 
 def decode_step(params, cfg, batch, cache):
@@ -204,7 +223,8 @@ def decode_step(params, cfg, batch, cache):
     x = embed_apply(params.embed, tokens)
     for g, glayers in enumerate(params.layers):
         x, _ = _shared_block(params.shared, x, positions[:, None], cfg,
-                             AttnMode(), cache=(cache["k"][g], cache["v"][g]),
+                             AttnMode(), cache=(_at(cache["k"], g),
+                                                _at(cache["v"], g)),
                              write_pos=positions)
         for p, lp in enumerate(glayers):
             y, _ = ssm.mamba2_decode(lp, rms_norm(x, lp["ln"], cfg.norm_eps),
@@ -212,4 +232,10 @@ def decode_step(params, cfg, batch, cache):
                                       "h": cache["h"][g, p]}, cfg)
             x = x + y
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0], cache
+    return each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings)), cache
+
+
+def _at(leaf, g: int):
+    """Group g's slot of a cache leaf, whole or one block a model rank."""
+    return each(lambda t: t[g], leaf)

@@ -5,6 +5,16 @@ a model, a plain dict in the tests) under the JAX package's names and
 layouts, so each function reads like its JAX twin.  Initialisers draw from
 a ``torch.Generator`` on its own device, one tensor at a time, in f32, and
 cast to the model dtype.
+
+Inside a data rank's pass whose model group splits a weight over
+``model`` (``distributed/context.py``), the MLP, the embedding, the
+logits and the loss take each model rank's share as the JAX rules lay it
+out: the MLP's ``wg``/``wi`` column-parallel and ``wo`` row-parallel, then
+the sum; the embedding vocabulary-parallel (each rank looks up the tokens
+in its rows, zeros for the others, then the sum); the logits one piece a
+rank, a list (:func:`each` maps over them); the cross entropy over those
+pieces (:func:`vocab_parallel_loss`).  No rank holds logits of the whole
+vocabulary.
 """
 from __future__ import annotations
 
@@ -18,6 +28,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.distributed.context import (carried, is_split, model_max,
+                                             model_sum, over_model, twins)
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -165,8 +178,10 @@ def layer_stack(fn, layers, x, cfg, *args):
             x = fn(layer, x, cfg, *args)
             continue
         body = fn if mode == "nothing" else _keeping_weight_products(fn)
-        x = torch.utils.checkpoint.checkpoint(body, layer, x, cfg, *args,
-                                              use_reentrant=False)
+        # the recompute may run on the autograd engine's thread: it takes
+        # the mesh and the model group of the forward's
+        x = torch.utils.checkpoint.checkpoint(carried(body), layer, x, cfg,
+                                              *args, use_reentrant=False)
     return x
 
 
@@ -250,6 +265,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> dict:
 
 
 def mlp_apply(p, x):
+    """SwiGLU; where ``wg``'s spec splits its columns over ``model``, each
+    rank's columns and its rows of ``wo``, the partial outputs summed."""
+    if is_split(p["wg"]):
+        return model_sum(over_model(lambda m, q: _mlp(q, x), twins(p)))
+    return _mlp(p, x)
+
+
+def _mlp(p, x):
     g = F.silu(dense(x, p["wg"]))
     u = dense(x, p["wi"])
     return dense(g * u, p["wo"])
@@ -268,21 +291,77 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 
 def embed_apply(p, tokens):
-    return F.embedding(tokens, p["embedding"])
+    """The tokens' rows; vocabulary-parallel where the embedding's spec
+    splits its rows over ``model``: each rank's rows give its tokens and
+    zeros elsewhere, and the sum has exactly one term that is not zero."""
+    if not is_split(p["embedding"]):
+        return F.embedding(tokens, p["embedding"])
+
+    def part(m, q):
+        w = q["embedding"]
+        local = tokens - m * w.shape[0]
+        mine = (local >= 0) & (local < w.shape[0])
+        e = F.embedding(torch.where(mine, local, 0), w)
+        return torch.where(mine[..., None], e, e.new_zeros(()))
+    return model_sum(over_model(part, twins(p)))
 
 
 def logits_apply(p, x, tie: bool):
+    """(..., V) logits; where the head's spec splits the vocabulary over
+    ``model``, a list of each rank's (..., V / m) piece."""
+    w = p["embedding"] if tie else p["lm_head"]
+    if is_split(w):
+        return over_model(lambda m, q: _logits(q, x, tie), twins(p))
+    return _logits(p, x, tie)
+
+
+def _logits(p, x, tie: bool):
     if tie:
         return x @ p["embedding"].T
     return x @ p["lm_head"]
 
 
+def each(fn, logits):
+    """``fn`` of the logits, or of each rank's piece of them."""
+    if isinstance(logits, list):
+        return [None if z is None else fn(z) for z in logits]
+    return fn(logits)
+
+
+def vocab_parallel_loss(pieces: list, labels, mask=None):
+    """:func:`cross_entropy_loss` of logits held one vocabulary piece a
+    model rank (rank m's ids ``[m V/m, (m+1) V/m)``): the max and the sum
+    of exponentials in f32 across the ranks, and the label's logit from
+    the rank that owns it."""
+    labels = labels.long()
+    top = model_max(over_model(lambda m, z: z.float().amax(-1),
+                               pieces)).detach()
+    total = model_sum(over_model(lambda m, z: torch.exp(
+        z.float() - top[..., None]).sum(-1), pieces))
+
+    def label_logit(m, z):
+        n = z.shape[-1]
+        local = labels - m * n
+        mine = (local >= 0) & (local < n)
+        ll = torch.gather(z, -1, torch.where(mine, local, 0)[..., None])
+        return torch.where(mine, ll[..., 0].float(), 0.0)
+    nll = top + torch.log(total) - model_sum(over_model(label_logit,
+                                                        pieces))
+    return _mean_nll(nll, mask)
+
+
 def cross_entropy_loss(logits, labels, mask=None):
-    """Mean token-level CE. logits (..., V) any float dtype; stable in f32."""
+    """Mean token-level CE. logits (..., V) any float dtype; stable in f32.
+    A list of vocabulary pieces goes to :func:`vocab_parallel_loss`."""
+    if isinstance(logits, list):
+        return vocab_parallel_loss(logits, labels, mask)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    return _mean_nll(lse - ll, mask)
+
+
+def _mean_nll(nll, mask):
     if mask is None:
         return nll.mean()
     mask = mask.float()

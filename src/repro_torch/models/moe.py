@@ -22,6 +22,16 @@ Reference behaviours kept exactly:
 * a dropped pair contributes 0; the shared experts' sigmoid gate is
   computed in f32 and cast.
 
+Inside a data rank's pass whose model group splits the experts over
+``model`` (``wg``'s spec puts ``model`` on E, as the JAX constraint on
+the expert buffer does where E divides; ``distributed/context.py``),
+``moe_ffn`` routes the data rank's tokens once, at one capacity, and runs
+``_experts`` once a model rank on its experts' slots (the other experts'
+pairs go to its drop row); the partial outputs are summed in rank order.
+Where E does not divide (qwen2-moe's 60 experts on 16 ranks) the experts
+stay whole.  The shared experts' MLP is split as any MLP
+(``layers.mlp_apply``).
+
 ``moe_ffn_shardmap`` is the JAX package's local-expert EP, which it
 writes per model rank under ``shard_map``: each data shard's tokens route
 on their own, at the capacity of their own count; each model rank owns
@@ -40,7 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.dataframe import comm
 from repro_torch.distributed.context import (current_mesh, current_moe_impl,
-                                             mesh_sizes)
+                                             is_split, mesh_sizes, model_sum,
+                                             over_model, twins)
 from repro_torch.models.layers import (dense, dense_init, mlp_apply,
                                        mlp_init)
 
@@ -149,10 +160,25 @@ def moe_ffn(p, x, cfg):
 
     idx, gates = route(p, xt, cfg)                        # (T, k)
     e_of_pair, pos_of_pair = dispatch_indices(idx, E, C)  # (T*k,)
+    if is_split(p["wg"]):
+        out = model_sum(over_model(lambda m, q: _rank_experts(
+            xt, e_of_pair, pos_of_pair, gates, q, m, C), twins(p)))
+        return _shared(p, xt, out, cfg).reshape(*lead, d)
     # each pair's row of the flat (E·C + 1, d) buffer; E·C takes the drops
     slot = torch.where(pos_of_pair < C, e_of_pair * C + pos_of_pair, E * C)
     out = _experts(xt, slot, gates, p["wg"], p["wi"], p["wo"], C)
     return _shared(p, xt, out, cfg).reshape(*lead, d)
+
+
+def _rank_experts(xt, e_of_pair, pos_of_pair, gates, q, m: int, cap: int):
+    """Model rank m's partial output: its experts ``[m·el, (m+1)·el)``
+    (``q``: its slice of the layer) on the pairs routed to them within the
+    capacity; every other pair goes to its drop row."""
+    el = q["wg"].shape[0]
+    local = e_of_pair - m * el
+    mine = (local >= 0) & (local < el) & (pos_of_pair < cap)
+    slot = torch.where(mine, local * cap + pos_of_pair, el * cap)
+    return _experts(xt, slot, gates, q["wg"], q["wi"], q["wo"], cap)
 
 
 def moe_ffn_shardmap(p, x, cfg, mesh):
@@ -177,6 +203,8 @@ def moe_ffn_shardmap(p, x, cfg, mesh):
     el = E // tpn
     t_loc = xt.shape[0] // dpn
     cap = capacity(t_loc, cfg)
+    # rank m's experts: its own slice where a model group split them
+    own = twins(p) if is_split(p["wg"]) else None
     outs = []
     for xl in xt.split(t_loc):
         idx, gates = route(p, xl, cfg)
@@ -190,9 +218,10 @@ def moe_ffn_shardmap(p, x, cfg, mesh):
             _, pos = dispatch_indices(local_e.reshape(-1, 1), el + 1, cap)
             slot = torch.where((local_e < el) & (pos < cap),
                                local_e * cap + pos, el * cap)
-            partial.append(_experts(
-                xl, slot, gates, p["wg"][lo:lo + el], p["wi"][lo:lo + el],
-                p["wo"][lo:lo + el], cap))
+            w = own[m] if own else {k: p[k][lo:lo + el]
+                                    for k in ("wg", "wi", "wo")}
+            partial.append(_experts(xl, slot, gates, w["wg"], w["wi"],
+                                    w["wo"], cap))
         outs.append(comm.psum(partial, [xl.device])[0])
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     return _shared(p, xt, out, cfg).reshape(*lead, d)

@@ -13,7 +13,9 @@ by ``ssm.scan_mode``.
 The cache keeps the JAX layout: ``conv`` (n_layers, B, K-1, d_inner) in the
 cache dtype and ``h`` (n_layers, B, d_inner, N) in f32, so the serving
 engines find its batch axis (1) as the JAX engines do.  Its size does not
-depend on ``smax``.  ``prefill`` takes each layer's final state from the
+depend on ``smax``.  In a model group only the embedding and
+``lm_head`` are split (vocabulary-parallel, ``layers.py``): the JAX rules
+give the Mamba weights no ``model`` split.  ``prefill`` takes each layer's final state from the
 same ``ssm_scan`` call that computes its output; ``decode_step`` writes the
 new conv window and state into the cache in place and returns it.
 """
@@ -24,7 +26,7 @@ from torch import nn
 
 from repro_torch.models import ssm
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, embed_apply,
+from repro_torch.models.layers import (cross_entropy_loss, each, embed_apply,
                                        embed_init, frozen, layer_stack,
                                        logits_apply, rms_norm, torch_dtype)
 
@@ -95,12 +97,15 @@ def forward(params, cfg, batch, mode: AttnMode = AttnMode()):
 def loss_fn(params, cfg, batch, mode: AttnMode = AttnMode()):
     logits = forward(params, cfg, batch, mode)
     mask = batch.get("loss_mask")
-    return cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+    return cross_entropy_loss(each(lambda z: z[:, :-1], logits),
+                              batch["labels"][:, 1:],
                               None if mask is None else mask[:, 1:])
 
 
-def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None):
-    """``smax`` is the uniform API's: a Mamba cache has no sequence axis."""
+def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None,
+               params=None):
+    """``smax`` and ``params`` are the uniform API's: a Mamba cache has no
+    sequence axis and holds no leaf one block a model rank."""
     st = ssm.mamba1_state_init(batch_size, cfg,
                                torch_dtype(dtype or cfg.dtype), device)
     return {k: v.new_zeros((cfg.n_layers,) + v.shape) for k, v in st.items()}
@@ -117,7 +122,8 @@ def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
         cache["h"][i] = st["h"]
         x = x + y
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return cache, logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0]
+    return cache, each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings))
 
 
 def decode_step(params, cfg, batch, cache):
@@ -131,4 +137,5 @@ def decode_step(params, cfg, batch, cache):
                                   "h": cache["h"][i]}, cfg)
         x = x + y
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0], cache
+    return each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings)), cache

@@ -36,11 +36,12 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import AttnMode
-from repro_torch.models.layers import (cross_entropy_loss, dense,
+from repro_torch.models.layers import (cross_entropy_loss, dense, each,
                                        embed_apply, embed_init, frozen,
                                        layer_stack,
                                        logits_apply, meta_groups, mlp_apply,
-                                       mlp_init, rms_norm, torch_dtype)
+                                       mlp_init, rms_norm, rope_sincos,
+                                       torch_dtype)
 
 
 def ffn_group(cfg, i: int) -> str:
@@ -145,11 +146,18 @@ def init(gen: torch.Generator, cfg, trainable: bool = False) -> Transformer:
 # blocks
 # ----------------------------------------------------------------------------
 def _attn_sub(p, x, positions, cfg, mode: AttnMode):
+    """The attention block, once a model rank where its heads are split;
+    returns x and each share's (k, v) (``attention.over_heads``)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = attn.qkv_project(p, h, positions, cfg.rope_theta, cfg.qk_norm,
-                               cfg.norm_eps)
-    o = attn.attend(q, k, v, causal=True, mode=mode)
-    return x + dense(o, p["wo"], 2), (k, v)
+    rope = rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
+
+    def share(s):
+        q, k, v = attn.qkv_project(s.p, h, positions, cfg.rope_theta,
+                                   cfg.qk_norm, cfg.norm_eps, rope)
+        o = attn.attend(q, k, v, causal=True, mode=mode)
+        return dense(o, s.p["wo"], 2), (k, v)
+    out, kvs = attn.over_heads(p, share)
+    return x + out, kvs
 
 
 def _ffn_sub(layer, x, cfg):
@@ -191,39 +199,45 @@ def loss_fn(params, cfg, batch, mode: AttnMode = AttnMode()):
     logits = forward(params, cfg, batch, mode)
     prefix = batch.get("prefix_embeds")
     if prefix is not None:
-        logits = logits[:, prefix.shape[1]:]
+        logits = each(lambda z: z[:, prefix.shape[1]:], logits)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
-    return cross_entropy_loss(logits[:, :-1], labels[:, 1:],
+    return cross_entropy_loss(each(lambda z: z[:, :-1], logits),
+                              labels[:, 1:],
                               None if mask is None else mask[:, 1:])
 
 
 # ----------------------------------------------------------------------------
 # prefill / decode
 # ----------------------------------------------------------------------------
-def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None):
+def cache_init(cfg, batch_size: int, smax: int, dtype=None, device=None,
+               params=None):
+    """Zero ``k``/``v``; with ``params`` (a pass's lead slice) held one
+    block a model rank where its ``wk`` is split (``attention.kv_zeros``)."""
     dtype = torch_dtype(dtype or cfg.dtype)
     period = cfg.moe_layer_period
     shape = (cfg.n_layers // period, period, batch_size, smax,
              cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    wk = None if params is None else params.layers[0].attn["wk"]
+    return {"k": attn.kv_zeros(shape, dtype, device, wk),
+            "v": attn.kv_zeros(shape, dtype, device, wk)}
 
 
 def prefill(params, cfg, batch, smax: int, mode: AttnMode = AttnMode()):
     """Full forward over the prompt (after its ``prefix_embeds``, if any);
     returns (cache, last-token logits)."""
     x, positions = _embed_input(params, batch)
-    cache = cache_init(cfg, x.shape[0], smax, device=x.device)
+    cache = cache_init(cfg, x.shape[0], smax, device=x.device, params=params)
     s = x.shape[1]
     for i, layer in enumerate(params.layers):
-        x, (k, v) = _attn_sub(layer.attn, x, positions, cfg, mode)
+        x, kvs = _attn_sub(layer.attn, x, positions, cfg, mode)
         sb, j = superblock_slot(cfg, i)
-        cache["k"][sb, j, :, :s] = k
-        cache["v"][sb, j, :, :s] = v
+        attn.store_kv((cache["k"], cache["v"]), (sb, j, slice(None),
+                                                  slice(None, s)), kvs)
         x = _ffn_sub(layer, x, cfg)
     x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return cache, logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0]
+    return cache, each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings))
 
 
 def decode_step(params, cfg, batch, cache):
@@ -232,16 +246,22 @@ def decode_step(params, cfg, batch, cache):
     tokens, positions = batch["tokens"], batch["positions"]
     x = embed_apply(params.embed, tokens)
     pos2d = positions[:, None]
+    rope = rope_sincos(pos2d, cfg.head_dim, cfg.rope_theta)
     for i, layer in enumerate(params.layers):
         ap = layer.attn
         h = rms_norm(x, ap["ln"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(ap, h, pos2d, cfg.rope_theta, cfg.qk_norm,
-                                   cfg.norm_eps)
         sb, j = superblock_slot(cfg, i)
-        ck, cv = attn.cache_update(cache["k"][sb, j], cache["v"][sb, j], k,
-                                   v, positions)
-        o = attn.attend_decode(q, ck, cv, positions + 1)
-        x = x + dense(o, ap["wo"], 2)
+
+        def share(s):
+            q, k, v = attn.qkv_project(s.p, h, pos2d, cfg.rope_theta,
+                                       cfg.qk_norm, cfg.norm_eps, rope)
+            ck, cv = attn.cache_update(s.of(cache["k"])[sb, j],
+                                       s.of(cache["v"])[sb, j], k, v,
+                                       positions)
+            o = attn.attend_decode(q, ck, cv, positions + 1)
+            return dense(o, s.p["wo"], 2), None
+        x = x + attn.over_heads(ap, share)[0]
         x = _ffn_sub(layer, x, cfg)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return logits_apply(params.embed, x, cfg.tie_embeddings)[:, 0], cache
+    return each(lambda z: z[:, 0], logits_apply(
+        params.embed, x, cfg.tie_embeddings)), cache

@@ -1160,8 +1160,8 @@ def test_sharded_step_on_the_card_matches_the_cpu(cuda):
     of logical ranks of cuda:0 (TF32 off) and of the CPU, from the same
     parameters and batch: the loss within 1e-5 relative and every
     parameter leaf within 1e-5 of its largest magnitude; the card's step
-    launches flash_attention once a layer a data rank a forward (twice
-    under remat)."""
+    launches flash_attention once a layer a (data, model) rank a forward
+    (twice under remat): the model axis splits the heads."""
     import dataclasses
     from repro_torch.configs import (ParallelConfig, ShapeConfig, get_config,
                                      reduced)
@@ -1187,7 +1187,7 @@ def test_sharded_step_on_the_card_matches_the_cpu(cuda):
                                log_every=0)
         if dev == cuda:
             assert fa.flash_attention.launches - before == \
-                2 * cfg.n_layers * (2 if cfg.remat else 1)
+                2 * 2 * cfg.n_layers * (2 if cfg.remat else 1)
         out[str(dev)] = (losses, flat_paths(tr.state_tree(state)["params"]))
     np.testing.assert_allclose(out["cuda:0"][0], out["cpu"][0], rtol=1e-5)
     for k, want in out["cpu"][1].items():
@@ -1231,10 +1231,10 @@ def _serve_cells(rows, prompt, new):
 def test_sharded_bf16_prefill_holds_each_kernel_call_to_f32_plain(
         cuda, monkeypatch):
     """The sharded prefill of reduced qwen3-8b in bf16 on a (2, 2) mesh of
-    logical ranks of cuda:0: flash_attention launches once a layer a data
-    rank, and each call's result lies within 4e-3 + 2e-2 |plain| of the
-    plain version run in f32 on its inputs (the bf16 bound of the kernel
-    checks)."""
+    logical ranks of cuda:0: flash_attention launches once a layer a (data,
+    model) rank, on the rank's half of the heads, and each call's result
+    lies within 4e-3 + 2e-2 |plain| of the plain version run in f32 on its
+    inputs (the bf16 bound of the kernel checks)."""
     import dataclasses
     from repro_torch.configs import ParallelConfig, get_config, reduced
     from repro_torch.distributed.steps import make_prefill_step, shard_model
@@ -1261,7 +1261,9 @@ def test_sharded_bf16_prefill_holds_each_kernel_call_to_f32_plain(
                                 np.random.default_rng(0), cfg.vocab_size,
                                 cuda)
     _, logits = step.fn(params, batch)
-    assert recorded.launches == len(calls) == 2 * cfg.n_layers
+    assert recorded.launches == len(calls) == 2 * 2 * cfg.n_layers
+    assert {tuple(q.shape[2:]) for q, *_ in calls} == {
+        (cfg.n_heads // 2, cfg.head_dim)}
     assert all(torch.isfinite(x).all() for x in logits)
     for q, k, v, causal, out in calls:
         ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),

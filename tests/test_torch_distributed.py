@@ -161,6 +161,29 @@ def test_shard_unshard_round_trip(spec, shape, grid):
             [sizes[a] for a in used] or [1]))
 
 
+@pytest.mark.parametrize("spec,shape", [
+    ((), (8, 6)), (("data",), (8, 6)), ((None, "model"), (4, 12)),
+    (("data", None, "model"), (4, 1, 12))])
+@pytest.mark.parametrize("grid", [(2, 2), (1, 4), (2, 3)])
+def test_gather_block_is_each_model_ranks_block(spec, shape, grid):
+    """``gather_block`` at ``{"model": j}`` gives model rank j's block of
+    the dim ``model_split`` names, whole over the other axes (the leaf
+    itself where the spec has no ``model``); at ``{}`` the whole leaf; a
+    spec that does not fit the mesh raises, naming the leaf."""
+    m = mesh(*grid)
+    x = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
+    blocks = sh.shard(x, spec, m, "leaf/x")
+    for j in range(dict(zip(m.axes, m.shape))["model"]):
+        hit = sh.model_split(spec, shape, m, j)
+        want = x if hit is None else x[(slice(None),) * hit[0] + (hit[1],)]
+        coords = {} if hit is None else {"model": j}
+        got = sh.gather_block(blocks, spec, m, coords, name="leaf/x")
+        assert torch.equal(got, want) and got.is_contiguous()
+    assert torch.equal(sh.gather_block(blocks, spec, m, {}), x)
+    with pytest.raises(ValueError, match="leaf/x.*'pod'"):
+        sh.gather_block(blocks, ("pod",), m, {}, name="leaf/x")
+
+
 def test_shard_refuses_what_it_cannot_place():
     m = mesh(2, 2)
     with pytest.raises(ValueError, match="blocks/attn/wq.*'pod'"):
@@ -445,3 +468,47 @@ def test_port_mesh_matches_jax_trainer_on_host_devices():
     np.testing.assert_allclose(
         tr.state_tree(state)["params"]["final_norm"].numpy(),
         np.asarray(json.loads(lines["NORM"])), atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the model axis splitting compute under remat
+# ---------------------------------------------------------------------------
+def _split_grads(grid, remat_mode: str) -> list:
+    """One data pass of the sharded train step (data rank 0's rows, every
+    model rank's share) with ``remat_mode``: each working slice's f32
+    gradients."""
+    from repro_torch.distributed.steps import gather_model, shard_model
+    from repro_torch.models.convert import params_from_jax
+    _, tcfg = _configs()
+    tcfg = dataclasses.replace(tcfg, remat=True, remat_mode=remat_mode)
+    m = mesh(*grid)
+    bundle = make_train_step(tcfg, ParallelConfig(), ShapeConfig(
+        "t", "train", SEQ, BATCH), mesh=m)
+    info = bundle.info
+    params = shard_model(params_from_jax(_jax_params(), tcfg, CPU), info, m)
+    work = info["working"](torch.device(CPU))
+    for r, model in enumerate(work.slices):
+        model.requires_grad_(True)
+        gather_model(model, params, info["layout"], info["pspecs"], m,
+                     info["slices"], r)
+    accs = [{k: torch.zeros(p.shape) for k, p in model.named_parameters()}
+            for model in work.slices]
+    rows = {k: torch.as_tensor(v)[:BATCH // grid[0]]
+            for k, v in _batches(tcfg.vocab_size, 1)[0].items()}
+    info["data_pass"](0, work, accs, rows, 1)
+    return accs
+
+
+@pytest.mark.parametrize("grid", [(1, 4), (2, 2)])
+def test_split_gradients_under_dots_equal_nothing_bit_for_bit(grid):
+    """Under "dots" the backward's recompute is handed the forward's
+    weight products in call order, the model-rank loops included: every
+    slice's gradients equal those of "nothing" bit for bit."""
+    dots, nothing = _split_grads(grid, "dots"), _split_grads(grid, "nothing")
+    assert len(dots) == grid[1]
+    for a, b in zip(dots, nothing):
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert any(float(g.abs().max()) > 0 for acc in dots
+               for g in acc.values())

@@ -188,7 +188,7 @@ def test_a_reduced_cell_writes_its_record(arch, shape_name, tmp_path):
     assert json.loads(out.read_text()) == json.loads(json.dumps(rec))
     assert {"arch", "shape", "mesh", "kind", "n_devices", "parallel",
             "skipped", "model", "timing", "memory", "collectives",
-            "flops_per_data_rank"} <= set(rec)
+            "flops_per_rank"} <= set(rec)
     mem = rec["memory"]
     assert {"argument_bytes", "output_bytes", "working_bytes", "temp_bytes",
             "alias_bytes", "total_bytes", "fits_h100"} <= set(mem)
@@ -196,7 +196,7 @@ def test_a_reduced_cell_writes_its_record(arch, shape_name, tmp_path):
                                   - mem["alias_bytes"] + mem["working_bytes"]
                                   + mem["temp_bytes"])
     assert mem["fits_h100"] == (mem["total_bytes"] <= 80 * 2**30)
-    assert mem["temp_bytes"] > 0 and rec["flops_per_data_rank"] > 0
+    assert mem["temp_bytes"] > 0 and rec["flops_per_rank"] > 0
     assert rec["n_devices"] == 8 and not rec["skipped"]
     assert set(rec["collectives"]["per_op"]) <= {"all-gather",
                                                  "reduce-scatter"}
@@ -206,21 +206,27 @@ def test_a_reduced_cell_writes_its_record(arch, shape_name, tmp_path):
 
 
 def test_dense_decode_flops_equal_their_closed_form():
-    """One data rank's decode step of the reduced qwen3-8b (16 of 128 rows
-    on 4 data ranks, 32 768 cache positions): 2 x rows x the matrix
-    parameters (q, k, v, o, the MLP and the head; the embedding is a
-    lookup) plus, a layer, the scores and the weighted sum over every
-    cached position, 2 x 2 x rows x H x hd x smax.  Exactly."""
+    """One (data, model) rank's part of the decode step of the reduced
+    qwen3-8b (16 of 128 rows on 4 data ranks, 32 768 cache positions):
+    2 x rows x the matrix parameters (q, k, v, o, the MLP and the head;
+    the embedding is a lookup) plus, a layer, the scores and the weighted
+    sum over every cached position, 2 x 2 x rows x H x hd x smax, each
+    width over the 2 model ranks (every one divides); with
+    ``tensor_parallel=False``, the whole data rank's.  Exactly."""
     cfg = reduced(get_config("qwen3-8b"))
     shape = get_shape("decode_32k")
-    rec = dryrun.run_cell("qwen3-8b", "decode_32k", "single", cfg=cfg,
-                          mesh=_meta_mesh(), verbose=False)
     rows = shape.global_batch // 4
-    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    layer = d * h * hd + 2 * d * k * hd + h * hd * d + 3 * d * cfg.d_ff
-    matmul = cfg.n_layers * layer + d * cfg.vocab_size
-    attention = cfg.n_layers * 4 * rows * h * hd * shape.seq_len
-    assert rec["flops_per_data_rank"] == 2 * rows * matmul + attention
+    d, hd = cfg.d_model, cfg.head_dim
+    for tp, m in ((True, 2), (False, 1)):
+        rec = dryrun.run_cell("qwen3-8b", "decode_32k", "single", cfg=cfg,
+                              mesh=_meta_mesh(), verbose=False,
+                              parallel_overrides={"tensor_parallel": tp})
+        h, k, f, v = (x // m for x in (cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.d_ff, cfg.vocab_size))
+        layer = d * h * hd + 2 * d * k * hd + h * hd * d + 3 * d * f
+        matmul = cfg.n_layers * layer + d * v
+        attention = cfg.n_layers * 4 * rows * h * hd * shape.seq_len
+        assert rec["flops_per_rank"] == 2 * rows * matmul + attention
 
 
 @pytest.mark.parametrize("arch,shape_name", [
@@ -236,19 +242,61 @@ def test_depth_extrapolation_equals_the_whole_pass(arch, shape_name):
 
 
 def test_decode_cell_counts_the_cache_gather():
-    """The decode step gathers a data rank's rows of the cache from its
-    model ranks' blocks: the all-gather carries them beside the
-    parameters, and the pass holds them."""
+    """Where the cache's spec splits the sequence over ``model`` (the
+    reduced qwen3-8b's 2 kv heads on 4 model ranks), the decode step
+    gathers a data rank's rows of the cache from its model ranks' blocks:
+    the all-gather carries them beside the working slice, and the pass
+    holds them.  Where it splits the kv heads (2 model ranks), each model
+    rank attends over its own block: nothing of the cache is gathered and
+    the pass holds less than the data rank's rows."""
     cfg = reduced(get_config("qwen3-8b"))
-    rec = dryrun.run_cell("qwen3-8b", "decode_32k", "single", cfg=cfg,
-                          mesh=_meta_mesh(), verbose=False)
-    mem = rec["memory"]
-    cache_block = mem["argument_parts"]["cache"]
-    rows_cache = cache_block * 2          # the block's 2 model ranks
-    gather = rec["collectives"]["per_op"]["all-gather"]["traffic_bytes"]
-    params = mem["working_bytes"] - mem["argument_parts"]["params"]
-    assert gather == params + rows_cache - cache_block
-    assert mem["temp_bytes"] >= rows_cache
+    for grid, gathered in (((2, 4), True), ((4, 2), False)):
+        rec = dryrun.run_cell("qwen3-8b", "decode_32k", "single", cfg=cfg,
+                              mesh=_meta_mesh(*grid), verbose=False)
+        mem = rec["memory"]
+        cache_block = mem["argument_parts"]["cache"]
+        rows_cache = cache_block * grid[1]     # the block's model ranks
+        gather = rec["collectives"]["per_op"]["all-gather"]["traffic_bytes"]
+        params = mem["working_bytes"] - mem["argument_parts"]["params"]
+        if gathered:
+            assert gather == params + rows_cache - cache_block
+            assert mem["temp_bytes"] >= rows_cache
+        else:
+            assert gather == params
+            assert mem["temp_bytes"] < rows_cache
+
+
+@pytest.mark.parametrize("arch", dryrun._CELL_ORDER)
+def test_working_bytes_are_one_model_ranks_blocks(arch):
+    """Each published cell's working bytes: the sum over the JAX leaves
+    of each leaf's bytes over its split over ``model`` by the JAX spec
+    (the train step adds an f32 accumulator of the same shapes); with
+    ``tensor_parallel=False``, the whole model's."""
+    cfg, pshape, _ = _jax_model(arch)
+    grid, axes = MESHES["single"]
+    duck = types.SimpleNamespace(axis_names=axes,
+                                 devices=np.empty(grid, dtype=object))
+    specs = jax.tree.leaves(jsh.param_specs(pshape, duck, JParallel(), cfg),
+                            is_leaf=lambda x: isinstance(x, JP))
+    leaves = jax.tree.leaves(pshape)
+    size = dict(zip(axes, grid))["model"]
+    split = [size if "model" in tuple(s) else 1 for s in specs]
+    numel = sum(int(np.prod(x.shape)) // n for x, n in zip(leaves, split))
+    nbytes = sum(int(np.prod(x.shape)) * x.dtype.itemsize // n
+                 for x, n in zip(leaves, split))
+    whole = sum(int(np.prod(x.shape)) * x.dtype.itemsize for x in leaves)
+    mesh = make_production_mesh(device="meta")
+    tcfg = get_config(arch)
+    for shape_name, want in (("decode_32k", nbytes),
+                             ("train_4k", nbytes + 4 * numel)):
+        shape = get_shape(shape_name)
+        if not supports_shape(tcfg, shape):
+            continue
+        mem, _ = dryrun.step_bytes(tcfg, shape, mesh, ParallelConfig())
+        assert mem["working_bytes"] == want, shape_name
+    mem, bundle = dryrun.step_bytes(tcfg, get_shape("decode_32k"), mesh,
+                                    ParallelConfig(tensor_parallel=False))
+    assert bundle.info["slices"].n == 1 and mem["working_bytes"] == whole
 
 
 def test_cli_writes_a_cell(tmp_path, monkeypatch):

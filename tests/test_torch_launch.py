@@ -5,8 +5,11 @@ Each family at a reduced config (qwen3-8b, qwen2-moe-a2.7b under
 ``moe_impl`` "gspmd" and "shardmap", falcon-mamba-7b, zamba2-7b,
 internvl2-1b, whisper-medium), the JAX ``init`` params carried across
 (``params_from_jax``) and sharded onto (2, 2), (4, 1) and (1, 4) meshes of
-logical CPU ranks: one prefill of 4 rows of 8 tokens and 3 greedy decode
-steps.  The logits and the whole cache (each leaf unsharded from the
+logical CPU ranks and the 3-axis ("pod", "data", "model") mesh (2, 1, 2),
+the model axis splitting compute (each model rank its heads, ff columns,
+experts and vocabulary slice), and qwen3-8b also on (1, 4) with
+``tensor_parallel=False``: one prefill of 4 rows of 8 tokens and 3 greedy
+decode steps.  The logits and the whole cache (each leaf unsharded from the
 ranks' blocks) within 1e-5 of the JAX results, greedy tokens equal.  Each
 rank's block shapes are ``NamedSharding(AbstractMesh, spec).shard_shape``
 of the JAX package's ``cache_specs`` and logit spec.  The MoE runs at the
@@ -32,6 +35,7 @@ from repro.distributed import sharding as jsh
 from repro.models import get_model as jax_get_model
 
 from repro_torch.configs import ParallelConfig, ShapeConfig, get_config, reduced
+from repro_torch.core import build_communicator, logical_devices
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.steps import (make_decode_step,
                                            make_prefill_step, make_step,
@@ -44,7 +48,7 @@ from repro_torch.train.optimizer import adamw_init
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S, DECODES = 4, 8, 3
-GRIDS = [(2, 2), (4, 1), (1, 4)]
+GRIDS = [(2, 2), (4, 1), (1, 4), (2, 1, 2)]
 CASES = [("qwen3-8b", "gspmd"), ("qwen2-moe-a2.7b", "gspmd"),
          ("qwen2-moe-a2.7b", "shardmap"), ("falcon-mamba-7b", "gspmd"),
          ("zamba2-7b", "gspmd"), ("internvl2-1b", "gspmd"),
@@ -123,17 +127,17 @@ def _flat_np(tree) -> dict:
     return {k: np.asarray(v) for k, v in sh.flat_paths(tree).items()}
 
 
-def _duck_mesh(grid):
+def _duck_mesh(grid, axes=("data", "model")):
     """What the JAX rules read of a mesh (axis names and its devices'
     shape), for a mesh of no devices."""
-    return types.SimpleNamespace(axis_names=("data", "model"),
+    return types.SimpleNamespace(axis_names=axes,
                                  devices=np.empty(grid, dtype=object))
 
 
-def _jax_blocks(jcfg, grid, parallel, smax):
+def _jax_blocks(jcfg, grid, parallel, smax, axes=("data", "model")):
     """Each cache leaf's and the logits' block shape by the JAX specs."""
-    am = AbstractMesh(grid, ("data", "model"))
-    mesh = _duck_mesh(grid)
+    am = AbstractMesh(grid, axes)
+    mesh = _duck_mesh(grid, axes)
     cshape = jax_get_model(jcfg).cache_init
     tree = jax.eval_shape(lambda: cshape(jcfg, B, smax))
     specs = jsh.cache_specs(jcfg, tree, mesh, parallel)
@@ -152,20 +156,48 @@ def _close(got, want):
     np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
 
 
+def _mesh(grid):
+    """A (data, model) mesh of CPU ranks, or (pod, data, model) for a
+    3-axis grid (the data ranks over ``pod`` and ``data``)."""
+    if len(grid) == 2:
+        return make_local_mesh(*grid, device="cpu")
+    return build_communicator(logical_devices(int(np.prod(grid)), "cpu"),
+                              axes=("pod", "data", "model"), shape=grid)
+
+
 @pytest.mark.parametrize("grid", GRIDS)
 @pytest.mark.parametrize("arch,impl", CASES)
 def test_sharded_prefill_and_decode_match_jax(arch, impl, grid):
+    prefill = _check_steps(arch, _mesh(grid), dict(moe_impl=impl))
+    assert prefill.info["slices"].n == grid[-1]
+
+
+def test_qwen3_steps_without_tensor_parallel():
+    """qwen3-8b on (1, 4) with ``tensor_parallel=False``, whose specs put
+    nothing on ``model``: one whole working model, no model group, the
+    cache's blocks replicated over the model ranks."""
+    prefill = _check_steps("qwen3-8b", _mesh((1, 4)),
+                           {"tensor_parallel": False})
+    assert prefill.info["slices"].n == 1
+    assert all(e is None or "model" not in e
+               for s in prefill.info["pspecs"].values() for e in s)
+
+
+def _check_steps(arch, mesh, kw):
+    """The sharded prefill and DECODES greedy steps on ``mesh`` under
+    ``ParallelConfig(**kw)`` against the JAX results; returns the prefill
+    bundle."""
     jcfg, tcfg = _configs(arch)
     host, ref = _jax_run(arch)
-    mesh = make_local_mesh(*grid, device="cpu")
-    parallel = ParallelConfig(moe_impl=impl)
+    grid, axes = tuple(mesh.shape), tuple(mesh.axes)
+    parallel = ParallelConfig(**kw)
     pshape, dshape = _shapes(tcfg)
     prefill = make_prefill_step(tcfg, mesh, parallel, pshape)
     decode = make_decode_step(tcfg, mesh, parallel, dshape)
     params = shard_model(params_from_jax(host, tcfg, "cpu"), prefill.info,
                          mesh)
-    cblocks, lblock = _jax_blocks(jcfg, grid, JParallel(moe_impl=impl),
-                                  pshape.seq_len + _prefix(jcfg))
+    cblocks, lblock = _jax_blocks(jcfg, grid, JParallel(**kw),
+                                  pshape.seq_len + _prefix(jcfg), axes)
     cspecs, lspec = prefill.info["cspecs"], prefill.info["logit_spec"]
 
     def check(logits, cache, want_logits, want_cache):
@@ -186,6 +218,7 @@ def test_sharded_prefill_and_decode_match_jax(arch, impl, grid):
         logits, cache = decode.fn(params, {k: torch.tensor(v)
                                            for k, v in feed.items()}, cache)
         check(logits, cache, want_logits, want_cache)
+    return prefill
 
 
 def test_make_step_dispatches_every_kind():
@@ -234,8 +267,10 @@ def test_make_step_dispatches_every_kind():
 def test_undivisible_batch_is_replicated_and_computed_once(monkeypatch):
     """3 rows on 2 data ranks: the batch, the cache's batch dim and the
     logits' rows stay whole on every rank, as the JAX rules leave them,
-    and one data rank's prefill and decode compute them, equal to one
-    rank's."""
+    and one data rank's prefill and decode compute them: equal to one
+    rank's with ``tensor_parallel=False`` (whole working models), within
+    1e-5 of it with the model axis splitting compute (f32 sums over the
+    model ranks)."""
     _, tcfg = _configs("qwen3-8b")
     host = _jax_run("qwen3-8b")[0]
     calls = {"prefill": 0, "decode_step": 0}
@@ -249,28 +284,38 @@ def test_undivisible_batch_is_replicated_and_computed_once(monkeypatch):
     pshape = ShapeConfig("p", "prefill", S + 1, 3)
     dshape = ShapeConfig("d", "decode", S + 1, 3)
     mesh = make_local_mesh(2, 2, device="cpu")
-    prefill = make_prefill_step(tcfg, mesh, ParallelConfig(), pshape)
-    decode = make_decode_step(tcfg, mesh, ParallelConfig(), dshape)
-    assert prefill.info["bspecs"]["tokens"] == (None, None)
-    assert prefill.info["logit_spec"][0] is None
-    assert prefill.info["cspecs"]["k"][2] is None
     model = params_from_jax(host, tcfg, "cpu")
-    params = shard_model(model, prefill.info, mesh)
     batch = _batch(tcfg, 3)
-    cache, logits = prefill.fn(params, batch)
-    assert calls["prefill"] == 1
     one = make_prefill_step(tcfg, None, ParallelConfig(), pshape)
-    want_cache, want = one.fn(model, batch)
-    assert all(torch.equal(x, want[:, x.shape[1] * (r % 2):][:, :x.shape[1]])
-               for r, x in enumerate(logits))
-    feed = {"tokens": want.argmax(-1, keepdim=True).to(torch.int32),
-            "positions": torch.full((3,), S, dtype=torch.int32)}
-    logits, cache = decode.fn(params, feed, cache)
-    assert calls["decode_step"] == 1
-    got = sh.unshard(logits, decode.info["logit_spec"], mesh)
-    want, want_cache = make_decode_step(tcfg, None, ParallelConfig(),
-                                        dshape).fn(model, feed, want_cache)
-    assert torch.equal(got, want)
-    for path, spec in decode.info["cspecs"].items():
-        assert torch.equal(sh.unshard([c[path] for c in cache], spec, mesh),
-                           want_cache[path])
+    want_cache0, want0 = one.fn(model, batch)
+    for parallel in (ParallelConfig(tensor_parallel=False), ParallelConfig()):
+        same = torch.equal if not parallel.tensor_parallel else \
+            (lambda a, b: np.allclose(a.numpy(), b.numpy(), **TOL))
+        calls.update(prefill=0, decode_step=0)
+        prefill = make_prefill_step(tcfg, mesh, parallel, pshape)
+        decode = make_decode_step(tcfg, mesh, parallel, dshape)
+        assert prefill.info["bspecs"]["tokens"] == (None, None)
+        assert prefill.info["logit_spec"][0] is None
+        assert prefill.info["cspecs"]["k"][2] is None
+        params = shard_model(model, prefill.info, mesh)
+        cache, logits = prefill.fn(params, batch)
+        assert calls["prefill"] == 1
+        want_cache, want = {k: v.clone() for k, v in want_cache0.items()}, \
+            want0
+        if parallel.tensor_parallel:
+            assert all(same(x, want[:, x.shape[1] * (r % 2):]
+                            [:, :x.shape[1]]) for r, x in enumerate(logits))
+        else:
+            assert all(same(x, want) for x in logits)
+        feed = {"tokens": want.argmax(-1, keepdim=True).to(torch.int32),
+                "positions": torch.full((3,), S, dtype=torch.int32)}
+        logits, cache = decode.fn(params, feed, cache)
+        assert calls["decode_step"] == 1
+        got = sh.unshard(logits, decode.info["logit_spec"], mesh)
+        want, want_cache = make_decode_step(tcfg, None, ParallelConfig(),
+                                            dshape).fn(model, feed,
+                                                       want_cache)
+        assert same(got, want)
+        for path, spec in decode.info["cspecs"].items():
+            assert same(sh.unshard([c[path] for c in cache], spec, mesh),
+                        want_cache[path])
