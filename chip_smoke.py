@@ -11,20 +11,25 @@ Phases, one JSON line each:
   kernels   each kernel against its plain version at every shape the
             main-path phases give it and at a sweep of sizes (radix_partition
             bit-exact, ids outside [0, B) left at dest -1 and uncounted, a
-            second call bit-identical; flash_attention within 2e-5 in f32
-            and 2e-2 in bf16, and a bf16 result also within 4e-3 + 2e-2 *
-            |plain| of the plain version run in f32, causal or not as the
-            main path calls it (whisper's encoder and cross-attention:
-            non-causal, Sq != Sk; zamba2's shared block at head dim 112);
-            ssm_scan's y and final state within 1e-5 + 1e-5 * |plain|,
+            second call bit-identical; flash_attention within 2e-5 in f32,
+            2e-2 in bf16 and 4e-3 in f16, and a bf16 (f16) result also
+            within 4e-3 (1e-3) + 2e-2 (4e-3) * |plain| of the plain version
+            run in f32, causal or not as the main path calls it (whisper's
+            encoder and cross-attention: non-causal, Sq != Sk; zamba2's
+            shared block at head dim 112);
+            ssm_scan's y and final state within 1e-5 + 1e-5 * |plain|
+            (where that is missed: the kernel and the plain version each
+            within 1e-5 + 1e-5 * |exact| of the float64 scan),
             whatever the inputs' dtypes, and a second call bit-identical
             (at zamba2's width, N 64, and at its Mamba2 calls: held to the
             float64 scan instead); with the state in bf16 (ssm_scan_dtype
             "bfloat16") at serve_ssm_bf16's shapes, the sweep, the
             long-memory inputs and zamba2's call: the state bit for bit, y
             within 1e-5 + 1e-5 * sum_n |h_n C_n|, and at long memory y
-            nearer the bf16-state plain version than the f32 one; timed in
-            both modes;
+            nearer the bf16-state plain version than the f32 one; the same
+            with the state in f16 (ssm_scan_dtype "float16") on an f16
+            model's inputs at serve_hybrid_f16's shapes; timed in each
+            mode, each timed shape's numbers under its record's "modes";
             bitonic_sort's keys and payloads bit-identical), and its time
             beside its bound, the plain version's and one PyTorch call
             computing the same function, where there is one
@@ -104,6 +109,12 @@ Phases, one JSON line each:
             block, 32 heads of hd 112, applied 9 times; 6.75 B
             parameters), the same two acts, requests and timings as serve;
             flash_attention 9 times and ssm_scan 81 times a prefill
+  serve_hybrid_f16  serve_hybrid's weights cast to f16, at dtype and
+            ssm_scan_dtype "float16": the continuous engine over the same
+            requests, flash_attention's f16 mode 9 times and ssm_scan's
+            f16-state mode 81 times plus its f32 mode 81 times (the state
+            decode starts from) a prefill; timings; each layer's prefill
+            state bit-equal to the f32 mode's
   serve_hybrid_f32  its widths in float32 at the reduced config's
             structure, two groups of two Mamba2 layers: tokens equal the
             full-forward oracle's
@@ -145,9 +156,10 @@ Phases, one JSON line each:
   train_hybrid  zamba2-7b at its published widths in bf16, 18 of its 81
             layers (two groups of 9: the shared block's gradient sums two
             applications), the same 5 steps; then SSMScan's gradients at
-            one Mamba2 layer's call (1, 2048, 7168, 64), the state in f32
-            and in bf16, and FlashAttention's at (1, 2048, 32, 32, 112)
-            bf16, each bit-equal to autograd of its plain path
+            one Mamba2 layer's call (1, 2048, 7168, 64), the state in f32,
+            in bf16 and in f16 (an f16 model's inputs), and
+            FlashAttention's at (1, 2048, 32, 32, 112) in bf16 and in f16,
+            each bit-equal to autograd of its plain path
   train_cpu_gpu  the ci preset, 10 steps from the same parameters and
             batches on cuda:0 (TF32 off) and on the CPU: losses within 1e-4
             relative
@@ -535,9 +547,12 @@ def _radix_spec():
     }
 
 
-BF16_TOL, F32_TOL = 2e-2, 2e-5
-BF16_F32_ATOL = 4e-3            # bf16 kernel against the plain version in f32
-H100_BF16_FLOPS = 989e12        # dense tensor-core peak (NVIDIA data sheet)
+BF16_TOL, F16_TOL, F32_TOL = 2e-2, 4e-3, 2e-5
+# a bf16 or f16 kernel result against the plain version in f32: atol, with
+# the dtype's tolerance as rtol
+BF16_F32_ATOL, F16_F32_ATOL = 4e-3, 1e-3
+# dense tensor-core peak in bf16 and in f16 (NVIDIA data sheet)
+H100_BF16_FLOPS = 989e12
 
 
 def _attention_library(q, k, v, causal=True):
@@ -580,34 +595,38 @@ def _attention_spec():
 
     def compare(out, ref, args, yardstick=False, shape=()):
         """Largest absolute difference from the plain version, and whether
-        every element is within tol + tol * |plain| (tol 2e-2 in bf16: the
-        plain version rounds the scores to bf16 as the JAX einsum does, the
-        kernel keeps them in f32).  A bf16 kernel result is also held to the
-        plain version run in f32 on the same inputs, within BF16_F32_ATOL +
-        tol * |plain|: that leaves only the kernel's own roundings (P and
-        the output to bf16), so it holds the small outputs of a long
+        every element is within tol + tol * |plain| (tol 2e-2 in bf16, 4e-3
+        in f16: the plain version rounds the scores to the inputs' dtype as
+        the JAX einsum does, the kernel keeps them in f32).  A bf16 or f16
+        kernel result is also held to the plain version run in f32 on the
+        same inputs, within BF16_F32_ATOL (F16_F32_ATOL) + tol * |plain|:
+        that leaves only the kernel's own roundings (P and the output to
+        the inputs' dtype), so it holds the small outputs of a long
         prompt's late rows, which average hundreds of values, to their own
         size.  The library yardstick takes only the first check."""
-        tol = BF16_TOL if out.dtype == torch.bfloat16 else F32_TOL
+        tol, atol32 = {torch.bfloat16: (BF16_TOL, BF16_F32_ATOL),
+                       torch.float16: (F16_TOL, F16_F32_ATOL)}.get(
+                           out.dtype, (F32_TOL, None))
         diff = (out.float() - ref.float()).abs()
         ok = bool((diff <= tol + tol * ref.float().abs()).all())
         info = {}
-        if out.dtype == torch.bfloat16 and not yardstick:
+        if atol32 is not None and not yardstick:
             ref32 = fa.flash_attention_plain(*(a.float() for a in args),
                                              causal=shape[-1])
             diff32 = (out.float() - ref32).abs()
             info["max_abs_err_vs_f32_plain"] = float(diff32.max())
-            ok = ok and bool(
-                (diff32 <= BF16_F32_ATOL + tol * ref32.abs()).all())
+            ok = ok and bool((diff32 <= atol32 + tol * ref32.abs()).all())
         return float(diff.max()), ok, info
 
     def bound(shape):
         """4 hd FLOPs an unmasked (row, col) pair a head: S (S + 1) / 2
-        pairs causal, Sq Sk not; bytes: q, o, k, v once."""
+        pairs causal, Sq Sk not, at the tensor cores' dense bf16 and f16
+        peak (the f32 kernel's too: a yardstick, it runs on the CUDA
+        cores); bytes: q, o, k, v once."""
         b, h, kh, sq, sk, hd, dtype, causal = shape
         pairs = sq * (sq + 1) / 2 if causal else sq * sk
         flops = 4 * hd * h * b * pairs
-        size = 2 if dtype == torch.bfloat16 else 4
+        size = 4 if dtype == torch.float32 else 2
         nbytes = size * hd * b * (2 * h * sq + 2 * kh * sk)
         by_ops = flops / H100_BF16_FLOPS * 1e3
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -629,6 +648,11 @@ def _attention_spec():
                                   0, prompts.count(n), SERVE_MAX_BATCH))})
                 for sh in attention_shapes(cfg, b, n, bf16, prefix)]
 
+    def engine_shapes(cfg, prompts, dtype):
+        """The continuous engine's prefills alone: each prompt alone."""
+        return [sh for n in sorted(set(prompts), reverse=True)
+                for sh in attention_shapes(cfg, 1, n, dtype)]
+
     def f32_shapes(cfg, prefix=0):
         """The f32 serve phases: the oracle's forward at every length from
         the prompt's to the prompt's plus F32_NEW - 1, and the engine's
@@ -636,7 +660,7 @@ def _attention_spec():
         return [sh for n in F32_PROMPTS for d in range(F32_NEW)
                 for sh in attention_shapes(cfg, 1, n + d, f32, prefix)]
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     qwen3 = (32, 8, 128)
     return {
         "name": "flash_attention",
@@ -651,9 +675,10 @@ def _attention_spec():
         "library": _attention_library,
         "inputs": inputs, "compare": compare, "bound": bound,
         "tolerance": f"|kernel - plain| <= tol + tol * |plain|, tol "
-                     f"{F32_TOL} (f32), {BF16_TOL} (bf16); a bf16 kernel "
-                     f"also |kernel - plain in f32| <= {BF16_F32_ATOL} + "
-                     f"{BF16_TOL} * |plain in f32|",
+                     f"{F32_TOL} (f32), {BF16_TOL} (bf16), {F16_TOL} "
+                     f"(f16); a bf16 (f16) kernel also |kernel - plain in "
+                     f"f32| <= {BF16_F32_ATOL} ({F16_F32_ATOL}) + tol * "
+                     f"|plain in f32|",
         "describe": describe,
         # (B, H, K, Sq, Sk, hd, dtype, causal) of every prefill and forward
         # of the serve and train phases; the first is the timed one.
@@ -705,6 +730,8 @@ def _attention_spec():
             # (f32) and train_hybrid's forward (1 x 2048, among the first)
             *serve_shapes(zamba, SERVE_PROMPTS),
             *f32_shapes(zamba),
+            # serve_hybrid_f16: the continuous engine's prefills in f16
+            *engine_shapes(zamba, SERVE_PROMPTS, f16),
             # serve_dist: each (data, model) rank's prefill of its
             # SERVE_DIST_ROWS / DIST_GRID[0] rows on its H / DIST_GRID[1]
             # heads (bf16, and serve_dist_f32's qwen3-8b and qwen2-moe in
@@ -724,13 +751,16 @@ def _attention_spec():
         # prefill of qwen2-moe and of llama4-maverick, internvl2-1b's
         # train forward (GQA group 7), whisper's encoder and its train
         # forward's cross-attention (non-causal, all Sq Sk pairs), and
-        # zamba2's shared block at 2048 tokens (hd 112)
+        # zamba2's shared block at 2048 tokens (hd 112); then the dense
+        # prefill and zamba2's in f16
         "timed": ((1, *qwen3[:2], 2048, 2048, qwen3[2], bf16, True),
                   (1, 16, 16, 2048, 2048, 128, bf16, True),
                   (1, 40, 8, 2048, 2048, 128, bf16, True),
                   *attention_shapes(vlm, 1, TRAIN_SEQ, bf16, vlm.n_patches),
                   *attention_shapes(audio, 1, AUDIO_TEXT_CTX, bf16)[1:],
-                  *attention_shapes(zamba, 1, 2048, bf16)),
+                  *attention_shapes(zamba, 1, 2048, bf16),
+                  (1, *qwen3[:2], 2048, 2048, qwen3[2], f16, True),
+                  *attention_shapes(zamba, 1, 2048, f16)),
         "sweep": (
             *((b, h, kh, s, s, hd, dtype, True)
               for b, s, h, kh, hd in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64),
@@ -738,10 +768,11 @@ def _attention_spec():
                                       (1, 1, 4, 2, 16), (1, 17, 8, 2, 128),
                                       (2, 300, 14, 2, 64), (1, 130, 4, 4, 112),
                                       (2, 63, 8, 2, 112))
-              for dtype in (f32, bf16)),
+              for dtype in (f32, bf16, f16)),
             # hd 112 non-causal, Sq against Sk shorter and longer
             *((1, 8, 8, sq, sk, 112, dtype, False)
-              for sq, sk in ((37, 300), (300, 37)) for dtype in (f32, bf16)),
+              for sq, sk in ((37, 300), (300, 37))
+              for dtype in (f32, bf16, f16)),
             # non-causal, Sq against Sk shorter, equal and longer, on and
             # off the 128-row tiles
             *((b, h, kh, sq, sk, 64, dtype, False)
@@ -749,21 +780,29 @@ def _attention_spec():
                                        (2, 37, 300, 14, 2),
                                        (1, 300, 37, 8, 8),
                                        (2, 129, 129, 16, 16))
-              for dtype in (f32, bf16))),
+              for dtype in (f32, bf16, f16))),
     }
 
 
 SSM_TOL = 1e-5                  # tests/test_kernels.py's f32 tolerance
-F32, BF16 = torch.float32, torch.bfloat16
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 SSM_MODEL_MIX = (F32, BF16, BF16, BF16)     # dt, x, Bm, Cm in a bf16 model
+SSM_F16_MIX = (F32, F16, F16, F16)          # and in an f16 model
 SSM_F32_MIX = (F32,) * 4
-# a shape marked so runs the scan with its state in bf16 (ssm_scan_dtype
-# "bfloat16")
-BF16_STATE = "bf16state"
+# a shape marked so runs the scan with its state in bf16 or f16
+# (ssm_scan_dtype "bfloat16", "float16")
+BF16_STATE, F16_STATE = "bf16state", "f16state"
+LOW_STATES = {BF16_STATE: BF16, F16_STATE: F16}
+
+
+def _ssm_state_dtype(shape):
+    """The state dtype a shape's marks name, or None (f32)."""
+    return next((LOW_STATES[m] for m in shape[5:] if m in LOW_STATES), None)
 
 
 def _ssm_state_kwargs(shape) -> dict:
-    return {"state_dtype": BF16} if BF16_STATE in shape[5:] else {}
+    low = _ssm_state_dtype(shape)
+    return {} if low is None else {"state_dtype": low}
 
 
 def _ssm_spec():
@@ -792,16 +831,23 @@ def _ssm_spec():
     def compare(out, ref, args, yardstick=False, shape=()):
         """Largest absolute difference of y and of the final state, and
         whether every element is within SSM_TOL + SSM_TOL * |plain|: both
-        sides compute in f32 from the same values.  A second call must give
-        the same bits (no atomics: the sums run in a fixed order).
+        sides compute in f32 from the same values.  Where that bound is
+        missed, the kernel and the plain version must each lie within
+        SSM_TOL + SSM_TOL * |exact| of the float64 scan of the same values
+        (``accuracy.scan_f64``), y and the state alike: y sums N products,
+        and two f32 results a few ulps apart in the decays, summed in
+        different orders, can differ by more than SSM_TOL * |y| where |y|
+        is far below its terms while each is within that bound of the
+        exact y (PERF.md gives cases).  A second call must give the same
+        bits (no atomics: the sums run in a fixed order).
 
-        A shape marked BF16_STATE (the state in bf16): the final state
-        must equal the plain version's bit for bit (the kernel takes its
-        decay from the same expf and rounds op by op as the plain version
-        does), and y lie within SSM_TOL + SSM_TOL * sum_n |h_n C_n| of the
-        plain y (the same f32 products summed in another order;
-        ``accuracy.terms_bf16``).  At a long-memory shape the mode must
-        show: y nearer the bf16-state plain version than the f32 one.
+        A shape marked BF16_STATE or F16_STATE (the state in bf16 or f16):
+        the final state must equal the plain version's bit for bit (the
+        kernel takes its decay from the same expf and rounds as the plain
+        version does), and y lie within SSM_TOL + SSM_TOL * sum_n |h_n C_n|
+        of the plain y (the same f32 products summed in another order;
+        ``accuracy.terms``).  At a long-memory shape the mode must
+        show: y nearer the low-state plain version than the f32 one.
 
         A shape marked "f64" is held to the float64 scan of the same values
         instead (``accuracy.held_to_f64``): the state within SSM_TOL +
@@ -822,22 +868,31 @@ def _ssm_spec():
         same = all(torch.equal(o, a) for o, a in zip(out, again, strict=True))
         # worst_of_tolerance: the largest |kernel - plain| over its bound
         info = {"repeat_bit_identical": same, "worst_of_tolerance": worst}
-        if BF16_STATE in marks:
+        low = _ssm_state_dtype(shape or ())
+        if low is not None:
             info["state_bit_equal"] = torch.equal(out[1], ref[1])
             info["y_over_terms_bound"] = accuracy.over_bound(
-                out[0], ref[0], accuracy.terms_bf16(*args))
+                out[0], ref[0], accuracy.terms(*args, state_dtype=low))
             ok = info["state_bit_equal"] and \
                 info["y_over_terms_bound"] <= 1 and same
             if "long" in marks:
                 f32 = ssm.ssm_scan_plain(*args)
-                info["y_vs_bf16_plain"] = float((out[0] - ref[0]).abs().max())
+                info["y_vs_low_plain"] = float((out[0] - ref[0]).abs().max())
                 info["y_vs_f32_plain"] = float((out[0] - f32).abs().max())
                 info["mode_shows"] = \
-                    info["y_vs_bf16_plain"] < info["y_vs_f32_plain"]
+                    info["y_vs_low_plain"] < info["y_vs_f32_plain"]
                 ok = ok and info["mode_shows"]
             return err, ok, info
         if "f64" not in marks:
-            return err, worst <= 1 and same, info
+            ok = worst <= 1
+            if not ok:
+                exact = accuracy.scan_f64(*args)
+                info["kernel_vs_f64"], info["plain_vs_f64"] = (
+                    max(accuracy.over_bound(o, e)
+                        for o, e in zip(res, exact[:2], strict=True))
+                    for res in (out, ref))
+                ok = info["kernel_vs_f64"] <= 1 and info["plain_vs_f64"] <= 1
+            return err, ok and same, info
         exact = accuracy.scan_f64(*args)
         info["kernel_vs_f64"], info["plain_vs_f64"] = (
             max(accuracy.over_bound(o, e)
@@ -852,7 +907,7 @@ def _ssm_spec():
         (dt*A, the state's multiply-add, dt*x*B, the C product's
         multiply-add)."""
         b, s, d, n, dtypes = shape[:5]
-        size = {F32: 4, BF16: 2}
+        size = {F32: 4, BF16: 2, F16: 2}
         t_dt, t_x, t_b, t_c = (size[t] for t in dtypes)
         nbytes = (b * s * d * (t_dt + t_x + 4) + b * s * n * (t_b + t_c)
                   + d * n * 4 + b * d * n * 4)
@@ -870,9 +925,11 @@ def _ssm_spec():
             **({"long_memory": True} if "long" in shape[5:] else {}),
             **({"inputs": "mamba2"} if "mamba2" in shape[5:] else {}),
             **({"held_to": "float64"} if "f64" in shape[5:] else {}),
-            **({"state": "bfloat16"} if BF16_STATE in shape[5:] else {})}
+            **({"state": str(_ssm_state_dtype(shape)).removeprefix(
+                "torch.")} if _ssm_state_dtype(shape) else {})}
 
-    mixes = (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16))
+    mixes = (SSM_F32_MIX, SSM_MODEL_MIX, (BF16, F32, F32, BF16),
+             SSM_F16_MIX)
     sweep_sizes = ((1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 48, 4),
                    (1, 77, 100, 16), (2, 300, 40, 5), (1, 300, 1000, 16),
                    (1, 300, 100, 3), (2, 17, 40, 5), (1, 1, 70, 12),
@@ -882,6 +939,7 @@ def _ssm_spec():
                    (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX,
                     "long"))
     timed = (1, 2048, d_inner, n_state, SSM_MODEL_MIX)
+    timed_f16 = (1, 2048, d_inner, n_state, SSM_F16_MIX)
     zamba2 = (1, 2048, zamba.d_inner, zamba.ssm_state, SSM_F32_MIX, "f64")
     # zamba2's Mamba2 call (N 64: the ssm_scan64 build), held to float64
     z_d, z_n = zamba.d_inner, zamba.ssm_state
@@ -900,11 +958,15 @@ def _ssm_spec():
         "library": None,        # no one PyTorch call computes the scan
         "inputs": inputs, "compare": compare, "bound": bound,
         "tolerance": f"|kernel - plain| <= {SSM_TOL} + {SSM_TOL} * |plain| "
-                     f"for y and the final state, any input dtypes; a "
+                     f"for y and the final state, any input dtypes (where "
+                     f"that is missed: kernel and plain each within "
+                     f"{SSM_TOL} + {SSM_TOL} * |exact| of the float64 "
+                     f"scan); a "
                      f"second call bit-identical; a check held to float64: "
                      f"|kernel - exact| <= {SSM_TOL} + {SSM_TOL} * "
                      f"sum_n |h_n C_n| for y, {SSM_TOL} + {SSM_TOL} * "
-                     f"|exact| for the state; a bf16 state: the state bit "
+                     f"|exact| for the state; a bf16 or f16 state: the "
+                     f"state bit "
                      f"for bit, y within {SSM_TOL} + {SSM_TOL} * "
                      f"sum_n |h_n C_n| of the plain y",
         "describe": describe,
@@ -915,7 +977,9 @@ def _ssm_spec():
         # prefill at the prompt's.  serve_ssm_bf16 prefills each prompt
         # alone with a bf16 state (and again in f32 for the state: the
         # first shapes).  Then the same for zamba2's Mamba2 layers
-        # (serve_hybrid, serve_hybrid_f32, train_hybrid's forward).
+        # (serve_hybrid, serve_hybrid_f32, train_hybrid's forward), and
+        # serve_hybrid_f16's: each prompt alone in an f16 model with an f16
+        # state, and again with an f32 state.
         "main_shapes": (
             *((1, s, d_inner, n_state, SSM_MODEL_MIX)
               for s in sorted(set(SERVE_PROMPTS), reverse=True)),
@@ -931,13 +995,21 @@ def _ssm_spec():
                 {s for s in SERVE_PROMPTS if SERVE_PROMPTS.count(s) > 1})),
             *((1, s + d, z_d, z_n, SSM_F32_MIX, *mamba2) for s in F32_PROMPTS
               for d in range(F32_NEW)),
+            *((1, s, z_d, z_n, SSM_F16_MIX, "mamba2", F16_STATE)
+              for s in sorted(set(SERVE_PROMPTS), reverse=True)),
+            *((1, s, z_d, z_n, SSM_F16_MIX, *mamba2)
+              for s in sorted(set(SERVE_PROMPTS), reverse=True)),
         ),
         # the serving shape, then zamba2-7b's Mamba2 call at a 2048-token
         # prefill (d_inner 7168 in 112 heads, N 64), held to float64; then
-        # both with the state in bf16
+        # both with the state in bf16; then an f16 model's inputs, with the
+        # state in f32 and in f16
         "timed": (timed, (1, 2048, z_d, z_n, SSM_MODEL_MIX, *mamba2),
                   (*timed, BF16_STATE),
-                  (1, 2048, z_d, z_n, SSM_MODEL_MIX, "mamba2", BF16_STATE)),
+                  (1, 2048, z_d, z_n, SSM_MODEL_MIX, "mamba2", BF16_STATE),
+                  timed_f16, (1, 2048, z_d, z_n, SSM_F16_MIX, *mamba2),
+                  (*timed_f16, F16_STATE),
+                  (1, 2048, z_d, z_n, SSM_F16_MIX, "mamba2", F16_STATE)),
         # the JAX sweep (tests/test_kernels.py), ragged S and D; N that is
         # no multiple of a channel's lanes, S of 1 and of no whole chunk or
         # group, D of no whole CTA, B = 2 at the serving width; N up to 64
@@ -945,7 +1017,8 @@ def _ssm_spec():
         # another mix.  Then channels of long memory, the last at zamba2's
         # width, and zamba2's width with the default inputs, held to float64.
         # Then the state in bf16: the ragged sizes all-f32 and in the
-        # model's mix, the long-memory inputs, and zamba2's Mamba2 call.
+        # model's mix, the long-memory inputs, and zamba2's Mamba2 call;
+        # then the same with the state in f16, in an f16 model's mix.
         "sweep": (
             *((*size, mix) for size in sweep_sizes for mix in mixes),
             *long_shapes,
@@ -953,7 +1026,12 @@ def _ssm_spec():
             *((*size, mix, BF16_STATE) for size in sweep_sizes
               for mix in mixes[:2]),
             *((*shape, BF16_STATE) for shape in long_shapes),
-            (1, 2048, z_d, z_n, SSM_MODEL_MIX, "mamba2", BF16_STATE)),
+            (1, 2048, z_d, z_n, SSM_MODEL_MIX, "mamba2", BF16_STATE),
+            *((*size, mix, F16_STATE) for size in sweep_sizes
+              for mix in (SSM_F32_MIX, SSM_F16_MIX)),
+            *((*shape, F16_STATE) for shape in long_shapes
+              if shape[4] == SSM_F16_MIX or shape[2] == z_d),
+            (1, 2048, z_d, z_n, SSM_F16_MIX, "mamba2", F16_STATE)),
     }
 
 
@@ -1130,7 +1208,12 @@ def phase_kernels(specs, gen):
             "launches": 0, "max_abs_err": max_err, "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"]}
+            "shape": t["shape"],
+            # every timed shape, each mode (dtype, state) of the kernel
+            "modes": [{"shape": m["shape"], "ms": m["kernel_ms"],
+                       **{k: m[k] for k in ("plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
+                      for m in timings]}
         emit("kernels", name=spec["name"], checks=checks, **t,
              timed=timings[1:], tolerance=spec["tolerance"])
     return records
@@ -1780,6 +1863,79 @@ def phase_serve_ssm_bf16(specs, records, params, base):
     return res
 
 
+def phase_serve_hybrid_f16(specs, records, params, base):
+    """zamba2-7b whole at its published widths at dtype "float16" with
+    ssm_scan_dtype "float16" (serve_hybrid's weights cast to f16 in place;
+    the leaves the JAX init keeps in f32 stay so): the continuous engine
+    over serve_hybrid's requests (each prompt's prefill alone, then the
+    decode rounds), flash_attention's f16 mode (hd 112) once a group and
+    ssm_scan twice a layer a prefill (y from the f16 state on an f16
+    model's inputs, the state handed to decode from an f32 launch), none in
+    decode (f32 state, plain); then serve_timings beside serve_hybrid's
+    (``base``).  Last, each prompt length's prefill once more, each
+    layer's returned state held bit for bit to the f32 mode's state on
+    that layer's scan inputs.  Tokens are not held to a full forward, for
+    serve_ssm_bf16's reason."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.models import ssm as model_ssm
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve_lm import make_requests
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), dtype="float16",
+                              ssm_scan_dtype="float16")
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dtype == BF16:
+                p.data = p.data.to(F16)
+    dtypes = sorted({str(p.dtype) for p in params.parameters()})
+    reqs = make_requests(cfg, SERVE_PROMPTS, SERVE_BUDGETS)
+    engine = ContinuousEngine(cfg, params, max_batch=SERVE_MAX_BATCH,
+                              max_seq=SERVE_MAX_SEQ)
+    with MainPath(specs, records, ("flash_attention", "ssm_scan")) as mp:
+        out, run_s = wall(lambda: engine.run(reqs))
+    counts = mp.counts()
+    _check_tokens(cfg, reqs, out, "f16")
+    per_prefill = {
+        "flash_attention": cfg.n_layers // cfg.shared_attn_period,
+        "ssm_scan": 2 * cfg.n_layers}
+    for kernel, n in per_prefill.items():
+        if counts[kernel] != n * len(reqs):
+            raise AssertionError(f"{kernel} launched {counts[kernel]} times "
+                                 f"for {len(reqs)} prefills of {n}")
+    res = {"arch": HYBRID_ARCH, "dtype": cfg.dtype,
+           "ssm_scan_dtype": cfg.ssm_scan_dtype, "param_dtypes": dtypes,
+           "requests": len(reqs), "prompt_lengths": SERVE_PROMPTS,
+           "max_new_tokens": SERVE_BUDGETS, "run_s": run_s,
+           "launches_per_prefill": per_prefill, "launches": counts,
+           **serve_timings(engine, reqs),
+           "serve_hybrid": {k: base[k] for k in ("prefill_ms",
+                                                 "decode_ms_per_round")}}
+    # the f32 mode's state on each f16-state call's inputs, layer by layer
+    states, scan = [], model_ssm.ssm_scan
+
+    def checking(*args, state_dtype=torch.float32, **kw):
+        if state_dtype == F16:
+            states.append(ops.ssm_scan(*args, return_state=True)[1])
+        return scan(*args, state_dtype=state_dtype, **kw)
+    model_ssm.ssm_scan = checking
+    try:
+        for n in sorted(set(SERVE_PROMPTS)):
+            states.clear()
+            adm = engine.prefill_request(next(r for r in reqs
+                                              if len(r.prompt) == n))
+            got = adm.cache["h"].flatten(0, 1)
+            if len(states) != cfg.n_layers or not all(
+                    torch.equal(got[i].reshape(h.shape), h)
+                    for i, h in enumerate(states)):
+                raise AssertionError(f"a {n}-token prefill's states differ "
+                                     f"from the f32 mode's")
+    finally:
+        model_ssm.ssm_scan = scan
+    res["prefill_state_equals_f32_mode"] = sorted(set(SERVE_PROMPTS))
+    return res
+
+
 def free_device_memory():
     """Drop what an earlier phase left: the scheduler's tasks, closures and
     threads hold the engines, and so the weights, in reference cycles that
@@ -2316,19 +2472,21 @@ def phase_train_qwen3(specs, records, gen):
                                                       mode, gen)}
 
 
-def attention_grad_check(cfg, mode, gen, s=TRAIN_SEQ) -> dict:
+def attention_grad_check(cfg, mode, gen, s=TRAIN_SEQ,
+                         dtype=torch.bfloat16) -> dict:
     """The attention Function's q, k and v gradients at ``cfg``'s attention
-    over 1 x ``s`` tokens in bf16, held bit-equal to autograd through the
-    plain path the train step differentiates at that length (``mode``)."""
+    over 1 x ``s`` tokens in ``dtype``, held bit-equal to autograd through
+    the plain path the train step differentiates at that length
+    (``mode``)."""
     import functools
     from repro_torch.kernels.flash_attention.ops import FlashAttention
     from repro_torch.models.attention import attend_plain
     plain = functools.partial(attend_plain, mode=mode)
     q, k, v = (torch.randn((1, s, h, cfg.head_dim), generator=gen,
-                           device="cuda").to(torch.bfloat16).requires_grad_()
+                           device="cuda").to(dtype).requires_grad_()
                for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
     g = torch.randn((1, s, cfg.n_heads, cfg.head_dim), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+                    device="cuda").to(dtype)
     got = torch.autograd.grad(FlashAttention.apply(q, k, v, True, plain),
                               (q, k, v), g)
     want = torch.autograd.grad(plain(q, k, v, causal=True), (q, k, v), g)
@@ -2336,8 +2494,8 @@ def attention_grad_check(cfg, mode, gen, s=TRAIN_SEQ) -> dict:
         raise AssertionError("the attention Function's gradients differ from"
                              " autograd of the plain path")
     return {"shape": [1, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-            "dtype": "bfloat16", "backward_path": mode.kind,
-            "bit_equal": True}
+            "dtype": str(dtype).removeprefix("torch."),
+            "backward_path": mode.kind, "bit_equal": True}
 
 
 def phase_train_moe(specs, records):
@@ -2411,8 +2569,9 @@ def phase_train_hybrid(specs, records, gen):
     (train_published; remat by group: each kernel twice a forward).  Then
     SSMScan's gradients at one Mamba2 layer's call (each head's dt and A
     repeated over its 64 channels), with the state in f32 and in bf16
-    (chunk 1024), and FlashAttention's at the shared block's (1, 2048, 32,
-    32, 112) in bf16, each bit-equal to autograd of its plain path."""
+    (chunk 1024), and in f16 on an f16 model's inputs, and FlashAttention's
+    at the shared block's (1, 2048, 32, 32, 112) in bf16 and in f16, each
+    bit-equal to autograd of its plain path."""
     from repro_torch.configs import get_config
     res, mode = train_published(specs, records, HYBRID_ARCH,
                                 TRAIN_HYBRID_LAYERS)
@@ -2424,7 +2583,12 @@ def phase_train_hybrid(specs, records, gen):
             "scan_grad_check": scan_grad_check(specs, mamba2, gen),
             "bf16_scan_grad_check": scan_grad_check(specs, mamba2, gen, BF16,
                                                     cfg.ssm_chunk),
-            "attention_grad_check": attention_grad_check(cfg, mode, gen)}
+            "f16_scan_grad_check": scan_grad_check(
+                specs, (*mamba2[:4], SSM_F16_MIX, *mamba2[5:]), gen, F16,
+                cfg.ssm_chunk),
+            "attention_grad_check": attention_grad_check(cfg, mode, gen),
+            "f16_attention_grad_check": attention_grad_check(
+                cfg, mode, gen, dtype=F16)}
 
 
 def phase_train_full_depth(specs, records, arch, seq):
@@ -3244,8 +3408,11 @@ def main() -> int:
         res = phase_serve_f32(AUDIO_ARCH, n_encoder_layers=2)
     emit("serve_audio_f32", launches=mp.counts(), **res)
 
-    res = run_serve(HYBRID_ARCH, specs, records, radix + attention + scan)
+    res = run_serve(HYBRID_ARCH, specs, records, radix + attention + scan,
+                    hold=held)
     emit("serve_hybrid", **res)
+    emit("serve_hybrid_f16", **phase_serve_hybrid_f16(
+        specs, records, held.pop("params"), res))
     with MainPath(specs, records, attention + scan) as mp:
         res = phase_serve_f32(HYBRID_ARCH, **HYBRID_F32)
     emit("serve_hybrid_f32", launches=mp.counts(), **res)

@@ -170,9 +170,10 @@ def _sort_case(shape: str, this):
 
 
 def _scan_case(shape: str, this):
-    """``B,S,D,N[,f32][,long|,mamba2]`` (``accuracy.parse_shape``): the
-    model's dtypes unless ``f32``, softplus inputs unless ``long`` or
-    ``mamba2`` (``accuracy.inputs``), the final state returned."""
+    """``B,S,D,N[,f32|,f16][,long|,mamba2]`` (``accuracy.parse_shape``): a
+    bf16 model's dtypes unless ``f32`` or ``f16``, softplus inputs unless
+    ``long`` or ``mamba2`` (``accuracy.inputs``), the final state
+    returned."""
     from repro_torch.kernels.ssm_scan import accuracy
     b, s, d, n, dtypes, kind = accuracy.parse_shape(shape)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -286,7 +287,7 @@ def main(argv=None) -> int:
                     help="a top-level constant of the other wrapper")
     ap.add_argument("--shape", help="flash_attention: B,H,K,S,hd (bf16, "
                     "causal); bitonic_sort: rows,n,int32|float32; ssm_scan: "
-                    "B,S,D,N[,f32][,long|,mamba2]; radix_partition: "
+                    "B,S,D,N[,f32|,f16][,long|,mamba2]; radix_partition: "
                     "n,B[,uniform|sorted|hot]")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--split", action="store_true",

@@ -1,4 +1,4 @@
-// Online-softmax GQA attention for Hopper (sm_90a), bf16 or f32 inputs.
+// Online-softmax GQA attention for Hopper (sm_90a), bf16, f16 or f32 inputs.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel
@@ -18,7 +18,10 @@
 // two products, 4 * hd FLOPs per unmasked (row, col) pair per head, against
 // reading q, k, v and writing o once, so arithmetic bounds it.  Two kernels:
 //
-//   bf16: warp-specialised, on the tensor cores through wgmma, fed by TMA.
+//   bf16 and f16: one template on the element type T (Elem below: the
+//         wgmma's type name, P's and the output's rounding, the tensor
+//         maps' data type).
+//         Warp-specialised, on the tensor cores through wgmma, fed by TMA.
 //         A CTA of 384 threads owns WG_BLOCK_Q = 128 query rows: two
 //         consumer warpgroups of 64 rows each and one producer warpgroup,
 //         of which one thread starts every copy.  The producer loads the Q
@@ -36,9 +39,9 @@
 //         K-major from shared memory; takes the online softmax on S's
 //         registers (four lanes share a row) in the exp2 domain with
 //         log2(e) folded into the scale, applying the causal and tail mask
-//         only on the diagonal and tail tiles; repacks P as bf16 A
-//         fragments in registers, as the TPU kernel feeds p.astype(v.dtype)
-//         to its second product; and adds P V with wgmma m64n{hd}k16, V
+//         only on the diagonal and tail tiles; repacks P as T A fragments
+//         in registers, as the TPU kernel feeds p.astype(v.dtype) to its
+//         second product; and adds P V with wgmma m64n{hd}k16, V
 //         MN-major (row-major as stored, transposed by the descriptor).
 //         setmaxnreg moves registers from the producer (24) to the
 //         consumers (240), which hold S and acc (64 + hd / 2 f32 each).
@@ -64,14 +67,15 @@
 // be built.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 // BLOCK_Q, BLOCK_K (the f32 kernel's tile rows), WG_BLOCK_Q, WG_BLOCK_K,
-// KV_STAGES (the bf16 kernel's tiles and ring) and MAX_HEAD_DIM come from
-// the wrapper, ops.py, as -D flags: it rejects head dims the kernel was not
-// built for.
+// KV_STAGES (the tensor-core kernel's tiles and ring) and MAX_HEAD_DIM come
+// from the wrapper, ops.py, as -D flags: it rejects head dims the kernel was
+// not built for.
 #if !defined(BLOCK_Q) || !defined(BLOCK_K) || !defined(MAX_HEAD_DIM) || \
     !defined(WG_BLOCK_Q) || !defined(WG_BLOCK_K) || !defined(KV_STAGES)
 #error "build with -DBLOCK_Q=... -DBLOCK_K=... -DWG_BLOCK_Q=... -DWG_BLOCK_K=... -DKV_STAGES=... -DMAX_HEAD_DIM=... (kernels/flash_attention/ops.py)"
@@ -81,7 +85,7 @@
 #define ROWS_PER_THREAD (BLOCK_Q / GRID)
 #define COLS_PER_THREAD (BLOCK_K / GRID)
 #define THREADS_PER_ROW (THREADS / BLOCK_Q)  // softmax reducers per row
-#define CONSUMERS 256                        // bf16 kernel: 2 warpgroups
+#define CONSUMERS 256                        // wgmma kernel: 2 warpgroups
 #define WG_THREADS (CONSUMERS + 128)         // and the producer's
 
 static_assert(BLOCK_Q % GRID == 0 && BLOCK_K % GRID == 0,
@@ -94,7 +98,7 @@ static_assert(MAX_HEAD_DIM == 16 || MAX_HEAD_DIM == 32 || MAX_HEAD_DIM == 64 ||
                   MAX_HEAD_DIM == 128,
               "MAX_HEAD_DIM is one of 16, 32, 64, 128");
 static_assert(WG_BLOCK_Q == 2 * 64 && WG_BLOCK_K == 128,
-              "the bf16 kernel takes 64 query rows per consumer warpgroup "
+              "the wgmma kernel takes 64 query rows per consumer warpgroup "
               "and S = Q K^T as one m64n128 product per 16 columns of hd");
 static_assert(KV_STAGES >= 2 && KV_STAGES <= 4, "KV_STAGES is 2 to 4");
 
@@ -119,7 +123,7 @@ static __device__ __forceinline__ int q_tile(int Sq, int causal) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma fed by TMA
+// bf16 and f16: wgmma fed by TMA
 // ---------------------------------------------------------------------------
 static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -200,139 +204,132 @@ static __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
 
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The element types of the tensor-core kernel: the PTX name of the type in
+// a wgmma, two f32 values rounded to a pair of them in one word (P's A
+// fragments, the output), and the tensor maps' data type.
+template <class T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool f16 = false;
+  static constexpr CUtensorMapDataType map_type =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr bool f16 = true;
+  static constexpr CUtensorMapDataType map_type =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// A wgmma of f32 accumulators from T operands: CALL("bf16") or CALL("f16"),
+// the asm statement with the type's PTX name in its string.
+#define WGMMA_TYPED(T, CALL)    \
+  if constexpr (Elem<T>::f16) { \
+    CALL("f16");                \
+  } else {                      \
+    CALL("bf16");               \
+  }
+
+// the accumulator operands of an m64nN product: N / 2 f32 registers
+#define D8 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7])
+#define D16 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define D32 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+    "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+    "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define D64 \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+    "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+    "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+    "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+    "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+    "+f"(d[62]), "+f"(d[63])
 
 // d (+)= A B^T, m64n128k16: A and B K-major in shared memory.
+#define SS_N128(TY)                                                    \
+  asm volatile(                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                     \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"    \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                               \
+      : D64                                                            \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <class T>
 static __device__ __forceinline__ void wgmma_ss_n128(
     float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  WGMMA_TYPED(T, SS_N128)
 }
 
-// d (+)= A B, m64n16k16: A in registers, B MN-major in shared memory.
-static __device__ __forceinline__ void wgmma_rs_n16(
-    float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
+// d (+)= A B, m64nNk16: A in registers, B MN-major in shared memory; the
+// scale predicate is operand P, the A fragment operands A0 to A0 + 3, the
+// B descriptor A0 + 4.
+#define RS(N, P, A0, A1, A2, A3, DB, DREGS, DOUT, TY)                    \
+  asm volatile(                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                  \
+      "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {"  \
+      DREGS "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB         \
+      ", p, 1, 1, 1;\n}\n"                                              \
+      : DOUT                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+#define REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define REGS16 REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define REGS32                                                          \
+  REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+         "%28, %29, %30, %31"
+#define REGS64                                                          \
+  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
+         "%56, %57, %58, %59, %60, %61, %62, %63"
+#define RS_N16(TY) RS(16, 13, 8, 9, 10, 11, 12, REGS8, D8, TY)
+#define RS_N32(TY) RS(32, 21, 16, 17, 18, 19, 20, REGS16, D16, TY)
+#define RS_N64(TY) RS(64, 37, 32, 33, 34, 35, 36, REGS32, D32, TY)
+#define RS_N128(TY) RS(128, 69, 64, 65, 66, 67, 68, REGS64, D64, TY)
 
-// d (+)= A B, m64n32k16: A in registers, B MN-major in shared memory.
-static __device__ __forceinline__ void wgmma_rs_n32(
-    float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A B, m64n64k16: A in registers, B MN-major in shared memory.
-static __device__ __forceinline__ void wgmma_rs_n64(
-    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A B, m64n128k16: A in registers, B MN-major in shared memory.
-static __device__ __forceinline__ void wgmma_rs_n128(
-    float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <int N>
+template <class T, int N>
 static __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db, 1);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, db, 1);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
-  else wgmma_rs_n128(d, a, db, 1);
+  const int scale_d = 1;
+  if constexpr (N == 16) {
+    WGMMA_TYPED(T, RS_N16)
+  } else if constexpr (N == 32) {
+    WGMMA_TYPED(T, RS_N32)
+  } else if constexpr (N == 64) {
+    WGMMA_TYPED(T, RS_N64)
+  } else {
+    WGMMA_TYPED(T, RS_N128)
+  }
 }
 
-// Shared memory of the bf16 kernel for head dim HD, in bytes from a
+// Shared memory of the wgmma kernel for head dim HD, in bytes from a
 // 1024-byte aligned base.  A tile of R rows is HD * 2 / RB column blocks of
 // R rows x RB bytes, each laid out (and swizzled) by TMA as wgmma reads it.
 template <int HD>
@@ -351,15 +348,15 @@ struct WgSmem {
                 "tiles keep the swizzle's 1024-byte alignment");
 };
 
-// HD: the tile's head dim (16, 32, 64 or 128); LHD: the tensors' own head
-// dim, at most HD (112 on the hd-128 tiles; columns LHD..HD-1 of every tile
-// are TMA's zero fill).
-template <int HD, int LHD>
+// T: the element type (__nv_bfloat16 or __half); HD: the tile's head dim
+// (16, 32, 64 or 128); LHD: the tensors' own head dim, at most HD (112 on
+// the hd-128 tiles; columns LHD..HD-1 of every tile are TMA's zero fill).
+template <class T, int HD, int LHD>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ o, long long o_b,
+                             T* __restrict__ o, long long o_b,
                              long long o_s, long long o_h, int group, int Sq,
                              int Sk, int causal, float scale_log2) {
   using L = WgSmem<HD>;
@@ -438,7 +435,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint64_t dk = gmma_desc(
             sK + s * L::kv_bytes + blk * WG_BLOCK_K * RB + in_row, 16,
             8 * RB, L::LAYOUT);
-        wgmma_ss_n128(sc, dq, dk, ks > 0);
+        wgmma_ss_n128<T>(sc, dq, dk, ks > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -500,14 +497,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // acc += P V: S's registers for columns 16k..16k+15 are the A
-      // fragment of step k; V's step k is its rows 16k..16k+15
+      // fragment of step k, rounded to T as the TPU kernel rounds p to
+      // v.dtype; V's step k is its rows 16k..16k+15
       uint32_t pa[8][4];
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        pa[k][0] = pack_bf16(sc[8 * k], sc[8 * k + 1]);
-        pa[k][1] = pack_bf16(sc[8 * k + 2], sc[8 * k + 3]);
-        pa[k][2] = pack_bf16(sc[8 * k + 4], sc[8 * k + 5]);
-        pa[k][3] = pack_bf16(sc[8 * k + 6], sc[8 * k + 7]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[k][r] = Elem<T>::pack(sc[8 * k + 2 * r], sc[8 * k + 2 * r + 1]);
       }
       wgmma_fence();
 #pragma unroll
@@ -515,7 +512,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint64_t dv =
             gmma_desc(sV + s * L::kv_bytes + k * 16 * RB, WG_BLOCK_K * RB,
                       8 * RB, L::LAYOUT);
-        wgmma_rs<HD>(acc, pa[k], dv);
+        wgmma_rs<T, HD>(acc, pa[k], dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -529,17 +526,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-    __nv_bfloat16* ob = o + b * o_b + h * o_h;
+    T* ob = o + b * o_b + h * o_h;
 #pragma unroll
     for (int j = 0; j < LHD / 8; ++j) {  // the columns past LHD are padding
       const int d = j * 8 + t4 * 2;
       if (row0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * o_s + d) =
-            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(ob + (long long)row0 * o_s + d) =
+            Elem<T>::pack(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
       if (row1 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * o_s + d) =
-            __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
-                                  acc[4 * j + 3] * inv1);
+        *reinterpret_cast<uint32_t*>(ob + (long long)row1 * o_s + d) =
+            Elem<T>::pack(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
   }
 }
@@ -735,15 +731,16 @@ static EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-D (hd, S, heads, B) bf16 map of a tensor with element strides
+// A 4-D (hd, S, heads, B) map of 2-byte `type` elements of a tensor with
+// element strides
 // st = [batch, seq, head], boxes of rb bytes x `rows` rows, swizzled by rb.
 // `hd` is the tensor's own width: a box reaching past it (hd 112 on the
 // hd-128 tiles) is zero-filled.
 // A dimension of size 1 may carry any stride in PyTorch; TMA wants a
 // multiple of 16 bytes, so it gets the packed one.
-static int make_map(CUtensorMap* map, const void* ptr, int hd, int S,
-                    int heads, int B, const long long st[3], int rows,
-                    int rb) {
+static int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* ptr, int hd, int S, int heads, int B,
+                    const long long st[3], int rows, int rb) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
@@ -759,7 +756,7 @@ static int make_map(CUtensorMap* map, const void* ptr, int hd, int S,
   const CUtensorMapSwizzle swizzle = rb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = encode(map, type, 4,
                             const_cast<void*>(ptr), dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -767,48 +764,59 @@ static int make_map(CUtensorMap* map, const void* ptr, int hd, int S,
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-template <int HD>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  const Strides& st, int bf16, int B, int H, int KH, int Sq,
-                  int Sk, int causal, float scale, cudaStream_t stream) {
-  cudaError_t err;
-  if (bf16) {
-    // the bf16 tiles' head dim: HD, or the next of 64 and 128 above it
-    constexpr int TILE = HD <= 16 ? 16 : HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
-    using L = WgSmem<TILE>;
-    CUtensorMap tq, tk, tv;
-    int e = make_map(&tq, q, HD, Sq, H, B, st.q, WG_BLOCK_Q, L::RB);
-    if (!e) e = make_map(&tk, k, HD, Sk, KH, B, st.k, WG_BLOCK_K, L::RB);
-    if (!e) e = make_map(&tv, v, HD, Sk, KH, B, st.v, WG_BLOCK_K, L::RB);
-    if (e) return e;
-    auto kern = flash_attention_wgmma_kernel<TILE, HD>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L::bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((Sq + WG_BLOCK_Q - 1) / WG_BLOCK_Q, H, B);
-    kern<<<grid, WG_THREADS, L::bytes, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), st.o[0], st.o[1], st.o[2],
-        H / KH, Sq, Sk, causal, scale * 1.4426950408889634f);
-  } else {
-    auto kern = flash_attention_f32_kernel<HD>;
-    const size_t bytes = Smem<HD>::bytes;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((Sq + BLOCK_Q - 1) / BLOCK_Q, H, B);
-    kern<<<grid, THREADS, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), st, H / KH, Sq,
-        Sk, causal, scale);
-  }
+// The tensor-core kernel on T inputs (bf16 or f16) of head dim HD.
+template <class T, int HD>
+static int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                        const Strides& st, int B, int H, int KH, int Sq,
+                        int Sk, int causal, float scale, cudaStream_t stream) {
+  // the tiles' head dim: HD, or the next of 64 and 128 above it
+  constexpr int TILE = HD <= 16 ? 16 : HD <= 32 ? 32 : HD <= 64 ? 64 : 128;
+  using L = WgSmem<TILE>;
+  constexpr CUtensorMapDataType type = Elem<T>::map_type;
+  CUtensorMap tq, tk, tv;
+  int e = make_map(&tq, type, q, HD, Sq, H, B, st.q, WG_BLOCK_Q, L::RB);
+  if (!e) e = make_map(&tk, type, k, HD, Sk, KH, B, st.k, WG_BLOCK_K, L::RB);
+  if (!e) e = make_map(&tv, type, v, HD, Sk, KH, B, st.v, WG_BLOCK_K, L::RB);
+  if (e) return e;
+  auto kern = flash_attention_wgmma_kernel<T, TILE, HD>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + WG_BLOCK_Q - 1) / WG_BLOCK_Q, H, B);
+  kern<<<grid, WG_THREADS, L::bytes, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), st.o[0], st.o[1], st.o[2], H / KH, Sq,
+      Sk, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-// q, o: (B, Sq, H, hd); k, v: (B, Sk, KH, hd), hd contiguous (in bf16,
-// every row of q, k and v 16-byte aligned: pointer and strides, as TMA
+template <int HD>
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  const Strides& st, int dtype, int B, int H, int KH, int Sq,
+                  int Sk, int causal, float scale, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_wgmma<__nv_bfloat16, HD>(q, k, v, o, st, B, H, KH, Sq, Sk,
+                                           causal, scale, stream);
+  if (dtype == 2)
+    return launch_wgmma<__half, HD>(q, k, v, o, st, B, H, KH, Sq, Sk, causal,
+                                    scale, stream);
+  auto kern = flash_attention_f32_kernel<HD>;
+  const size_t bytes = Smem<HD>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BLOCK_Q - 1) / BLOCK_Q, H, B);
+  kern<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, H / KH, Sq,
+      Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// q, o: (B, Sq, H, hd); k, v: (B, Sk, KH, hd), hd contiguous (in bf16 and
+// f16, every row of q, k and v 16-byte aligned: pointer and strides, as TMA
 // needs), element strides in `strides` = [q_b, q_s, q_h, k_b, k_s, k_h,
 // v_b, v_s, v_h, o_b, o_s, o_h] (a host array).  dtype 0 = float32,
-// 1 = bfloat16.  H % KH == 0.
+// 1 = bfloat16, 2 = float16.  H % KH == 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int dtype,
@@ -816,7 +824,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int hd, int causal, float scale,
                                       cudaStream_t stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Sk <= 0 ||
-      B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
+      B > 65535 || H > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 3; ++i) {

@@ -5,13 +5,15 @@ which replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/flash_attention.py::flash_attention_kernel``
 (wrapper ``ops.py::flash_attention``).  At the serving shapes the function
 is bound by arithmetic: 4 * hd FLOPs per unmasked (row, col) pair per head
-(two products) against reading q, k, v and writing o once.  bf16 inputs
-run the products on the tensor cores (``wgmma``, f32 accumulators), fed
-by TMA copies into a ring of ``KV_STAGES`` kv tiles; f32 inputs run them
-in f32 on the CUDA cores, which keeps the result within 2e-5 of the plain
-version.  The kernel reads the model layout through its strides (TMA
-tensor maps in bf16), so the wrapper neither transposes nor pads: the
-ragged Sq / Sk tail is masked inside the kernel.
+(two products) against reading q, k, v and writing o once.  bf16 and f16
+inputs run the products on the tensor cores (``wgmma``, f32 accumulators;
+one template on the element type, P rounded to it as the TPU kernel rounds
+p to ``v.dtype``), fed by TMA copies into a ring of ``KV_STAGES`` kv
+tiles; f32 inputs run them in f32 on the CUDA cores, which keeps the
+result within 2e-5 of the plain version.  The kernel reads the model
+layout through its strides (TMA tensor maps of 2-byte elements), so the
+wrapper neither transposes nor pads: the ragged Sq / Sk tail is masked
+inside the kernel.
 
 The causal mask is the TPU kernel's, ``cols <= rows``, top-left aligned.
 The oracle (``ref.attention_ref``) aligns the suffixes (offset Sk - Sq);
@@ -44,16 +46,16 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 # kernel's own numbers.
 BLOCK_Q = 64                # f32: query rows per CTA
 BLOCK_K = 64                # f32: key rows per shared-memory tile
-WG_BLOCK_Q = 128            # bf16: query rows per CTA (64 per warpgroup)
-WG_BLOCK_K = 128            # bf16: key rows per TMA tile
-KV_STAGES = 2               # bf16: kv tiles in flight in shared memory
+WG_BLOCK_Q = 128            # bf16, f16: query rows per CTA (64 a warpgroup)
+WG_BLOCK_K = 128            # bf16, f16: key rows per TMA tile
+KV_STAGES = 2               # bf16, f16: kv tiles in flight in shared memory
 MAX_HEAD_DIM = 128
-# 112 (zamba2's shared attention) runs on the hd-128 tiles in bf16
+# 112 (zamba2's shared attention) runs on the hd-128 tiles in bf16 and f16
 HEAD_DIMS = tuple(d for d in (16, 32, 64, 112, 128) if d <= MAX_HEAD_DIM)
 DEFINES = {"BLOCK_Q": BLOCK_Q, "BLOCK_K": BLOCK_K, "WG_BLOCK_Q": WG_BLOCK_Q,
            "WG_BLOCK_K": WG_BLOCK_K, "KV_STAGES": KV_STAGES,
            "MAX_HEAD_DIM": MAX_HEAD_DIM}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -88,8 +90,8 @@ def _check(q, k, v, causal: bool):
             raise ValueError(f"{name} must be 4-D (B, S, heads, hd), got "
                              f"shape {tuple(t.shape)}")
         if t.dtype not in _DTYPES:
-            raise ValueError(f"{name} is {t.dtype}; the kernel takes float32 "
-                             f"or bfloat16")
+            raise ValueError(f"{name} is {t.dtype}; the kernel takes "
+                             f"float32, bfloat16 or float16")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
     if not q.dtype == k.dtype == v.dtype:
@@ -106,13 +108,13 @@ def _check(q, k, v, causal: bool):
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
-    if q.dtype == torch.bfloat16 and any(
+    if q.dtype != torch.float32 and any(
             t.data_ptr() % 16 or any(st % 8 for n, st in
                                      zip(t.shape[:3], t.stride()[:3])
                                      if n > 1)
             for t in (q, k, v)):
-        raise ValueError("bf16 rows of q, k and v must start 16-byte "
-                         "aligned: the kernel copies them with TMA")
+        raise ValueError(f"{q.dtype} rows of q, k and v must start 16-byte "
+                         f"aligned: the kernel copies them with TMA")
     if causal and sq != k.shape[1]:
         raise ValueError(f"causal attention needs Sq == Sk (the kernel's "
                          f"mask is top-left aligned), got {sq} and "

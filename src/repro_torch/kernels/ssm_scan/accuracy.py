@@ -9,7 +9,8 @@ several shapes, and times nothing:
 
     PYTHONPATH=src python -m repro_torch.kernels.ssm_scan.accuracy \\
         [--other-ops path/to/ops.py] [--other-source path/to/ssm_scan.cu] \\
-        [--other-define NAME=VALUE ...] --shape B,S,D,N[,f32][,long|,mamba2] ...
+        [--other-define NAME=VALUE ...] \\
+        --shape B,S,D,N[,f32|,f16][,long|,mamba2] ...
 
 The other build is loaded as ``repro_torch.kernels.ab`` loads it.  For
 each shape it prints one JSON line: each build's largest |kernel - plain|
@@ -33,10 +34,14 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.ssm_scan.ref import mul_add
+
 TOL = 1e-5                  # tests/test_kernels.py's f32 tolerance
 F32_MIX = (torch.float32,) * 4
 # dt, x, Bm, Cm as a bf16 model gives them: dt f32 after its softplus
 MODEL_MIX = (torch.float32, torch.bfloat16, torch.bfloat16, torch.bfloat16)
+# the same in an f16 model (dtype "float16")
+F16_MIX = (torch.float32, torch.float16, torch.float16, torch.float16)
 KINDS = ("softplus", "long", "mamba2")
 MAMBA2_HEAD_DIM = 64        # zamba2-7b's ssm_head_dim
 
@@ -89,18 +94,20 @@ def inputs(b, s, d, n, dtypes=MODEL_MIX, kind="softplus", *, gen,
 
 
 def parse_shape(shape: str) -> tuple:
-    """``B,S,D,N[,f32][,long|,mamba2]`` -> (B, S, D, N, dtypes, kind): the
-    model's dtypes unless ``f32``, softplus inputs unless ``long`` or
-    ``mamba2``."""
+    """``B,S,D,N[,f32|,f16][,long|,mamba2]`` -> (B, S, D, N, dtypes, kind):
+    a bf16 model's dtypes unless ``f32`` or ``f16`` (an f16 model's),
+    softplus inputs unless ``long`` or ``mamba2``."""
     fields = shape.split(",")
     opts = set(fields[4:])
-    kinds = opts & {"long", "mamba2"}
-    if len(fields) < 4 or opts - {"f32", "long", "mamba2"} or len(kinds) > 1:
-        raise SystemExit(f"ssm_scan shapes are B,S,D,N[,f32][,long|,mamba2],"
-                         f" not {shape!r}")
+    kinds, mixes = opts & {"long", "mamba2"}, opts & {"f32", "f16"}
+    if len(fields) < 4 or opts - {"f32", "f16", "long", "mamba2"} or \
+            len(kinds) > 1 or len(mixes) > 1:
+        raise SystemExit(f"ssm_scan shapes are B,S,D,N[,f32|,f16]"
+                         f"[,long|,mamba2], not {shape!r}")
     b, s, d, n = (int(v) for v in fields[:4])
-    return (b, s, d, n, F32_MIX if "f32" in opts else MODEL_MIX,
-            kinds.pop() if kinds else "softplus")
+    mix = {"f32": F32_MIX, "f16": F16_MIX}.get(mixes.pop() if mixes else "",
+                                               MODEL_MIX)
+    return b, s, d, n, mix, kinds.pop() if kinds else "softplus"
 
 
 def scan_f64(dt, A, Bm, Cm, x):
@@ -122,22 +129,24 @@ def scan_f64(dt, A, Bm, Cm, x):
     return y, h, size
 
 
-def terms_bf16(dt, A, Bm, Cm, x):
-    """sum_n |h_n C_n| (B,S,D) of the bf16-state recurrence, the plain
-    version's (``ref.ssm_scan_ref`` at bfloat16): the size of y's terms.
-    The kernel's bf16 state is the plain version's bit for bit, and its y
-    sums the same f32 products in another order, so the two y differ by
-    that sum's rounding, which scales with this size."""
+def terms(dt, A, Bm, Cm, x, state_dtype=torch.float32):
+    """sum_n |h_n C_n| (B,S,D) of the recurrence with its state in
+    ``state_dtype``, the plain version's (``ref.ssm_scan_ref``): the size
+    of y's terms.  The kernel's bf16 or f16 state is the plain version's
+    bit for bit, and its y sums the same f32 products in another order, so
+    the two y differ by that sum's rounding, which scales with this size;
+    an f32 state differs by the decays' few ulps too, which y's terms
+    scale the same way."""
     dt, x, Bm, A = (t.float() for t in (dt, x, Bm, A))
-    c = Cm.bfloat16().float().abs()
+    c = Cm.to(state_dtype).float().abs()
     b, s, d = dt.shape
-    h = torch.zeros((b, d, A.shape[1]), dtype=torch.bfloat16,
-                    device=dt.device)
+    h = torch.zeros((b, d, A.shape[1]), dtype=state_dtype, device=dt.device)
     size = torch.empty((b, s, d), dtype=torch.float32, device=dt.device)
     for t in range(s):
-        decay = torch.exp(dt[:, t, :, None] * A).bfloat16()
-        h = decay * h + ((dt[:, t] * x[:, t])[..., None]
-                         * Bm[:, t, None, :]).bfloat16()
+        decay = torch.exp(dt[:, t, :, None] * A).to(state_dtype)
+        inp = ((dt[:, t] * x[:, t])[..., None]
+               * Bm[:, t, None, :]).to(state_dtype)
+        h = mul_add(decay, h, inp)
         size[:, t] = (h.float().abs() * c[:, t, None, :]).sum(-1)
     return size
 
@@ -182,7 +191,8 @@ def main(argv=None) -> int:
                     metavar="NAME=VALUE",
                     help="a top-level constant of the other wrapper")
     ap.add_argument("--shape", action="append", required=True,
-                    help="B,S,D,N[,f32][,long]; may be given again")
+                    help="B,S,D,N[,f32|,f16][,long|,mamba2]; may be given "
+                         "again")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -1,4 +1,5 @@
-// Mamba1 selective scan for Hopper (sm_90a): f32 state carried over time.
+// Mamba1 selective scan for Hopper (sm_90a): f32, bf16 or f16 state carried
+// over time.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/ssm_scan/ssm_scan.py::ssm_scan_kernel (with its
@@ -33,6 +34,10 @@
 //   one 16-byte load brings four of them.  Bm and Cm both bf16 (the
 //   model's) are staged as one word a (state, step), C in the high half,
 //   which cuts a thread's words a step from 2 + 2 PER_LANE to 2 + PER_LANE.
+//   f16 Bm and Cm go through the unpacked path: a bf16 half is an f32 with
+//   its low 16 bits cut, so C and B come out of the packed word by a mask
+//   and a shift, where an f16 half would need a conversion each in the
+//   step loop; unpacked, each is converted once, when it is stashed.
 // - The next chunk is read into registers as raw words while this one is
 //   computed, from pointers set once, and turned into f32 only when it is
 //   stashed: a bf16 value converted right after its load would hold the
@@ -41,28 +46,36 @@
 // - The decay is one ex2.approx of dt * (A log2 e) instead of expf's nine
 //   instructions (keep_a and decay below; PERF.md gives its accuracy).
 //
-// BF16_STATE (a flag of the entry point, one more instantiation): the JAX
-// package's ssm_scan_dtype = "bfloat16".  The decay and the input are
-// rounded to bf16, the state is rounded to bf16 after the product and again
-// after the sum (what bf16 a * h + b does op by op in PyTorch), C is
-// rounded to bf16, and y still sums in f32.  The decay there is expf, the
-// plain version's torch.exp bit for bit, and every product and sum is
-// rounded on its own (no fmaf), so the state equals the plain version's
-// bit for bit: with ex2.approx a rounded decay can land one bf16 ulp away,
-// and the state then drifts by ulps.
+// STATE (a mode of the entry point, one instantiation each): the JAX
+// package's ssm_scan_dtype.  F32 is the design above.  BF16
+// ("bfloat16"): the decay and the input are rounded to bf16, the state is
+// rounded to bf16 after the product and again after the sum (what bf16
+// a * h + b does op by op in PyTorch), C is rounded to bf16, and y still
+// sums in f32.  F16 ("float16"): the same in f16, except that the
+// state is rounded once a step, after the sum: the JAX package's f16
+// a * h + b is computed in f32 and rounded when it is stored (the plain
+// version's ref.mul_add), and an f16 product is exact in f32.  So no
+// __hfma: it would round the exact a * h + b once, where f32 rounds the
+// sum first and f16 then.  The decay in both is expf, the plain version's
+// torch.exp bit for bit, and every product and sum is rounded on its own
+// (no fmaf), so the state equals the plain version's bit for bit: with
+// ex2.approx a rounded decay can land one ulp away, and the state then
+// drifts by ulps.  The conversions round to nearest even and keep
+// subnormals and overflow to inf as PyTorch's casts do.
 //
-// Every input is f32 or bf16 on its own (a flag each), read through its
-// batch and step strides (rows contiguous), so the model's dt (f32 after
-// softplus), x (bf16) and the column slices Bm, Cm of x_db go in as they
-// are.  Ragged tails need no special path: a step past S or a state past N
-// is staged as zeros, which leaves h unchanged (exp(0) = 1, no input) and
-// adds nothing to y; those are never written out.  With h_out non-null the
-// state after the last step is written (B, D, N) f32: the TPU kernel's
-// scratch at the end of its grid, which a prefill hands to decode (in
-// BF16_STATE mode: the bf16 state, exactly, in f32).
+// Every input is f32, bf16 or f16 on its own (a kind each), read through
+// its batch and step strides (rows contiguous), so the model's dt (f32
+// after softplus), x (bf16 or f16) and the column slices Bm, Cm of x_db go
+// in as they are.  Ragged tails need no special path: a step past S or a
+// state past N is staged as zeros, which leaves h unchanged (exp(0) = 1, no
+// input) and adds nothing to y; those are never written out.  With h_out
+// non-null the state after the last step is written (B, D, N) f32: the TPU
+// kernel's scratch at the end of its grid, which a prefill hands to decode
+// (with a bf16 or f16 state: that state, exactly, in f32).
 // Every launch goes on the caller's stream; the entry point returns
 // cudaGetLastError().
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 // THREADS, LANES, MAX_STATE and CHUNK come from the wrapper, ops.py, as -D
@@ -92,6 +105,9 @@ static_assert((DX_PER_THREAD & (DX_PER_THREAD - 1)) == 0 &&
               "a thread stashes a power of two of steps at once");
 static_assert(CHUNK % GROUP == 0, "a chunk is whole groups of steps");
 
+// an input's element kind, and the state's mode: the wrapper's codes
+enum Kind { F32 = 0, BF16 = 1, F16 = 2 };
+
 struct Args {
   const void* dt;
   const void* A;
@@ -101,18 +117,21 @@ struct Args {
   float* y;       // (B, S, D) contiguous
   float* h_out;   // (B, D, N) contiguous, or null
   long long dt_b, dt_s, x_b, x_s, bm_b, bm_s, cm_b, cm_s, a_d;
-  int dt_bf16, a_bf16, bm_bf16, cm_bf16, x_bf16;
+  int dt_kind, a_kind, bm_kind, cm_kind, x_kind;   // Kind
   int S, D, N;
 };
 
-__device__ __forceinline__ float load(const void* p, long long i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+__device__ __forceinline__ float load(const void* p, long long i, int kind) {
+  return kind == BF16 ? __bfloat162float(
+                            static_cast<const __nv_bfloat16*>(p)[i])
+         : kind == F16 ? __half2float(static_cast<const __half*>(p)[i])
+                       : static_cast<const float*>(p)[i];
 }
 
-// a raw word as f32: a bf16 value in the low half, an f32 value whole
-__device__ __forceinline__ float word(unsigned r, int bf16) {
-  return __uint_as_float(bf16 ? r << 16 : r);
+// a raw word as f32: a bf16 or f16 value in the low half, an f32 value whole
+__device__ __forceinline__ float word(unsigned r, int kind) {
+  return kind == F16 ? __half2float(__ushort_as_half((unsigned short)r))
+                     : __uint_as_float(kind == BF16 ? r << 16 : r);
 }
 
 // This thread's share of an input's (CHUNK, COLS) tile of a chunk: column
@@ -120,24 +139,24 @@ __device__ __forceinline__ float word(unsigned r, int bf16) {
 // as raw 32-bit words (0 past S or past the input's C columns).  A warp's
 // load of one row is coalesced; the K values go to shared memory in one
 // vector store.  The pointer and the masks are set once, so a chunk's fetch
-// is a load a value; the dtype test sits outside the loop, and nothing
+// is a load a value; the kind test sits outside the loop, and nothing
 // reads a word until it is stashed, so all K loads are in flight at once
 // while the chunk before is computed.
 template <int K, int COLS>
 struct Tile {
   const unsigned char* p;   // the value at row s0 of the next chunk
   long long row, chunk;     // bytes from a step to the next; a chunk on
-  int c, s0, bf16;
+  int c, s0, kind;
   bool live;                // its column lies inside the input
   unsigned r[K];
 
-  __device__ __forceinline__ Tile(const void* base, int is_bf16,
+  __device__ __forceinline__ Tile(const void* base, int kind_,
                                   long long b_off, long long s_stride, int c0,
                                   int C) {
-    const int tid = threadIdx.x, es = is_bf16 ? 2 : 4;
+    const int tid = threadIdx.x, es = kind_ == F32 ? 4 : 2;
     c = tid % COLS;
     s0 = tid / COLS * K;
-    bf16 = is_bf16;
+    kind = kind_;
     live = c0 + c < C;
     p = static_cast<const unsigned char*>(base) +
         (b_off + s0 * s_stride + (live ? c0 + c : 0)) * es;
@@ -149,7 +168,7 @@ struct Tile {
   // chunk
   __device__ __forceinline__ void fetch(int left) {
     left -= s0;
-    if (bf16) {
+    if (kind != F32) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
         r[k] = (live && k < left)
@@ -167,7 +186,7 @@ struct Tile {
 
   // the k-th value as f32
   __device__ __forceinline__ float value(int k) const {
-    return word(r[k], bf16);
+    return word(r[k], kind);
   }
 };
 
@@ -218,7 +237,12 @@ __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One step of one state in BF16_STATE mode, from A itself (not A log2 e):
+// f32 rounded to the nearest f16, as f32
+__device__ __forceinline__ float f16r(float v) {
+  return __half2float(__float2half_rn(v));
+}
+
+// One step of one state with a bf16 state, from A itself (not A log2 e):
 // the plain version's roundings, op by op.
 __device__ __forceinline__ float step_bf16(float h, float dt, float A,
                                            float dx, float bv) {
@@ -227,10 +251,19 @@ __device__ __forceinline__ float step_bf16(float h, float dt, float A,
   return bf16r(__fadd_rn(bf16r(__fmul_rn(a, h)), in));
 }
 
+// The same with an f16 state: the product of two f16 values is exact in
+// f32, the sum is rounded to f32 and then to f16 (ref.mul_add).
+__device__ __forceinline__ float step_f16(float h, float dt, float A,
+                                          float dx, float bv) {
+  const float a = f16r(expf(__fmul_rn(dt, A)));
+  const float in = f16r(__fmul_rn(dx, bv));
+  return f16r(__fadd_rn(__fmul_rn(a, h), in));
+}
+
 // PACKED: Bm and Cm both bf16, staged as one word a (state, step), C in
 // the high half and B in the low, so a thread reads half as many words.
-// BF16_STATE: the state carried in bf16 (above).
-template <bool PACKED, bool BF16_STATE>
+// STATE: the state's Kind (above).
+template <bool PACKED, int STATE>
 __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
   __shared__ __align__(16) float s_dt[CHANNELS][ROW];
   __shared__ __align__(16) float s_dx[CHANNELS][ROW];    // dt * x
@@ -251,18 +284,18 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
 #pragma unroll
   for (int j = 0; j < PER_LANE; ++j) {
     const int n = j * LANES + lane;
-    const float an = (d < D && n < N) ? load(a.A, d * a.a_d + n, a.a_bf16)
+    const float an = (d < D && n < N) ? load(a.A, d * a.a_d + n, a.a_kind)
                                       : 0.f;
-    A[j] = BF16_STATE ? an : keep_a(an);
+    A[j] = STATE == F32 ? keep_a(an) : an;
     h[j] = 0.f;
   }
 
-  Tile<DX_PER_THREAD, CHANNELS> f_dt(a.dt, a.dt_bf16, b * a.dt_b, a.dt_s, d0,
+  Tile<DX_PER_THREAD, CHANNELS> f_dt(a.dt, a.dt_kind, b * a.dt_b, a.dt_s, d0,
                                      D);
-  Tile<DX_PER_THREAD, CHANNELS> f_x(a.x, a.x_bf16, b * a.x_b, a.x_s, d0, D);
-  Tile<BC_PER_THREAD, MAX_STATE> f_b(a.Bm, a.bm_bf16, b * a.bm_b, a.bm_s, 0,
+  Tile<DX_PER_THREAD, CHANNELS> f_x(a.x, a.x_kind, b * a.x_b, a.x_s, d0, D);
+  Tile<BC_PER_THREAD, MAX_STATE> f_b(a.Bm, a.bm_kind, b * a.bm_b, a.bm_s, 0,
                                      N);
-  Tile<BC_PER_THREAD, MAX_STATE> f_c(a.Cm, a.cm_bf16, b * a.cm_b, a.cm_s, 0,
+  Tile<BC_PER_THREAD, MAX_STATE> f_c(a.Cm, a.cm_kind, b * a.cm_b, a.cm_s, 0,
                                      N);
   auto fetch = [&](int t0) {
     f_dt.fetch(S - t0);
@@ -326,9 +359,12 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
             const float bv = PACKED ? __uint_as_float(w << 16) : part(b4[j], u);
             const float cv = PACKED ? __uint_as_float(w & 0xffff0000u)
                                     : part(c4[j], u);
-            if constexpr (BF16_STATE) {
+            if constexpr (STATE == BF16) {
               h[j] = step_bf16(h[j], dtv, A[j], dxv, bv);
               acc = fmaf(h[j], bf16r(cv), acc);
+            } else if constexpr (STATE == F16) {
+              h[j] = step_f16(h[j], dtv, A[j], dxv, bv);
+              acc = fmaf(h[j], f16r(cv), acc);
             } else {
               h[j] = fmaf(decay(dtv, A[j]), h[j], dxv * bv);
               acc = fmaf(h[j], cv, acc);
@@ -376,18 +412,28 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(const Args a) {
 }
 
 // strides: dt (b, s), x (b, s), Bm (b, s), Cm (b, s), A (d), in elements.
-// dtypes: dt, A, Bm, Cm, x; 0 = float32, 1 = bfloat16.  state_bf16: 0 =
-// the state in f32, 1 = in bf16 (BF16_STATE).
+// dtypes: dt, A, Bm, Cm, x; 0 = float32, 1 = bfloat16, 2 = float16 (Kind).
+// state: the state's dtype, the same codes (STATE).
+template <bool PACKED>
+static void launch(const Args& a, int state, dim3 grid, cudaStream_t stream) {
+  if (state == BF16)
+    ssm_scan_kernel<PACKED, BF16><<<grid, THREADS, 0, stream>>>(a);
+  else if (state == F16)
+    ssm_scan_kernel<PACKED, F16><<<grid, THREADS, 0, stream>>>(a);
+  else
+    ssm_scan_kernel<PACKED, F32><<<grid, THREADS, 0, stream>>>(a);
+}
+
 extern "C" int ssm_scan_launch(const void* dt, const void* A, const void* Bm,
                                const void* Cm, const void* x, void* y,
                                void* h_out, const long long* strides,
                                const int* dtypes, int B, int S, int D, int N,
-                               int state_bf16, cudaStream_t stream) {
+                               int state, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || D <= 0 || N <= 0 || N > MAX_STATE || B > 65535 ||
-      (state_bf16 != 0 && state_bf16 != 1))
+      state < F32 || state > F16)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 5; ++i)
-    if (dtypes[i] != 0 && dtypes[i] != 1) return (int)cudaErrorInvalidValue;
+    if (dtypes[i] < F32 || dtypes[i] > F16) return (int)cudaErrorInvalidValue;
   Args a;
   a.dt = dt;
   a.A = A;
@@ -405,26 +451,18 @@ extern "C" int ssm_scan_launch(const void* dt, const void* A, const void* Bm,
   a.cm_b = strides[6];
   a.cm_s = strides[7];
   a.a_d = strides[8];
-  a.dt_bf16 = dtypes[0];
-  a.a_bf16 = dtypes[1];
-  a.bm_bf16 = dtypes[2];
-  a.cm_bf16 = dtypes[3];
-  a.x_bf16 = dtypes[4];
+  a.dt_kind = dtypes[0];
+  a.a_kind = dtypes[1];
+  a.bm_kind = dtypes[2];
+  a.cm_kind = dtypes[3];
+  a.x_kind = dtypes[4];
   a.S = S;
   a.D = D;
   a.N = N;
   const dim3 grid((D + CHANNELS - 1) / CHANNELS, B);
-  const bool packed = a.bm_bf16 && a.cm_bf16;
-  if (state_bf16) {
-    if (packed)
-      ssm_scan_kernel<true, true><<<grid, THREADS, 0, stream>>>(a);
-    else
-      ssm_scan_kernel<false, true><<<grid, THREADS, 0, stream>>>(a);
-  } else {
-    if (packed)
-      ssm_scan_kernel<true, false><<<grid, THREADS, 0, stream>>>(a);
-    else
-      ssm_scan_kernel<false, false><<<grid, THREADS, 0, stream>>>(a);
-  }
+  if (a.bm_kind == BF16 && a.cm_kind == BF16)
+    launch<true>(a, state, grid, stream);
+  else
+    launch<false>(a, state, grid, stream);
   return (int)cudaGetLastError();
 }

@@ -11,19 +11,20 @@ With ``return_state`` it also returns the state after the last step,
 (B, D, N) f32: what the TPU kernel leaves in its VMEM scratch at the end of
 the grid, and what a prefill hands to decode.
 
-``state_dtype=torch.bfloat16`` is the JAX package's ``ssm_scan_dtype =
-"bfloat16"``: the decay and the input are computed in f32 and rounded to
-bf16, the state is carried in bf16 (rounded after the product and again
-after the sum), C is rounded to bf16, and y is summed in f32.  The kernel
-then takes the decay from the same ``expf`` as the plain version's
-``torch.exp``, so its state matches the plain version's bit for bit; the
-state it returns is the bf16 state, held in f32.  Other dtypes
-(float16) are not ported (ROADMAP queue 2 A3).
+``state_dtype=torch.bfloat16`` or ``torch.float16`` is the JAX package's
+``ssm_scan_dtype`` of that name: the decay and the input are computed in
+f32 and rounded to the state's dtype, the state is carried in it, C is
+rounded to it, and y is summed in f32.  A bf16 state is rounded after the
+product and again after the sum; an f16 state once, after the sum of the
+exact product (``ref.mul_add``: what the JAX package's f16 arithmetic
+gives on the CPU).  The kernel then takes the decay from the same ``expf``
+as the plain version's ``torch.exp``, so its state matches the plain
+version's bit for bit; the state it returns is that state, held in f32.
 
 Unlike the JAX wrapper, which asserts S % chunk == 0 and D % d_block == 0,
 this one takes any S and any D: the kernel masks the ragged tails.  Each of
-dt, A, Bm, Cm and x may be f32 or bf16 on its own, read as it is (no cast
-pass); Bm and Cm are read through their strides, so column slices of the
+dt, A, Bm, Cm and x may be f32, bf16 or f16 on its own, read as it is (no
+cast pass); Bm and Cm are read through their strides, so column slices of the
 model's ``x_db`` go in as they are.  Every row must be contiguous in its
 last dim.
 
@@ -57,7 +58,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels._nvcc import load_library
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import mul_add, ssm_scan_ref
 
 # The kernel is built with these as -D flags, so the checks below use the
 # kernel's own numbers.
@@ -79,7 +80,7 @@ MAX_BATCH = 65535           # the grid's y dimension
 # state takes the model's cfg.ssm_chunk instead (models/ssm.py::scan_mode).
 SCAN_CHUNK = 128
 # a dtype's code for the kernel: each input's, and the state's mode
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 _load_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -114,15 +115,14 @@ def load(n_state: int = 1):
 def _check(dt, A, Bm, Cm, x, state_dtype=torch.float32):
     if state_dtype not in _DTYPES:
         raise ValueError(f"state dtype {state_dtype}; the scan carries its "
-                         f"state in float32 or bfloat16 (other dtypes: "
-                         f"ROADMAP queue 2 A3)")
+                         f"state in float32, bfloat16 or float16")
     named = (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("x", x))
     for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if t.dtype not in _DTYPES:
-            raise ValueError(f"{name} is {t.dtype}; the kernel takes float32 "
-                             f"or bfloat16")
+            raise ValueError(f"{name} is {t.dtype}; the kernel takes "
+                             f"float32, bfloat16 or float16")
         if t.dim() != (2 if name == "A" else 3):
             raise ValueError(f"{name} has shape {tuple(t.shape)}; dt and x "
                              f"are (B,S,D), A (D,N), Bm and Cm (B,S,N)")
@@ -146,7 +146,7 @@ def _check(dt, A, Bm, Cm, x, state_dtype=torch.float32):
 def ssm_scan(dt, A, Bm, Cm, x, *, return_state: bool = False,
              state_dtype: torch.dtype = torch.float32):
     """y (B,S,D) f32, or ``(y, h_last)`` with ``return_state``; the state
-    carried in ``state_dtype`` (float32 or bfloat16)."""
+    carried in ``state_dtype`` (float32, bfloat16 or float16)."""
     _check(dt, A, Bm, Cm, x, state_dtype)
     dev = dt.device
     if dev.type == "cpu":
@@ -270,9 +270,10 @@ def kernel_order(dt, A, Bm, Cm, x, *, max_state=None, lanes=LANES):
 # ---------------------------------------------------------------------------
 def _combine(left, right):
     """The scan's operator on (decay, state) pairs, ``left`` the earlier:
-    ``jax.lax.associative_scan``'s ``fn`` in ``_assoc_scan_fused``."""
+    ``jax.lax.associative_scan``'s ``fn`` in ``_assoc_scan_fused``, its
+    multiply-add rounded as the JAX package's is (``ref.mul_add``)."""
     (al, bl), (ar, br) = left, right
-    return ar * al, ar * bl + br
+    return ar * al, mul_add(ar, bl, br)
 
 
 def _interleave(even, odd):
@@ -317,7 +318,7 @@ def _scan_chunk(h, dt, A, Bm, Cm, x, state_dtype):
     if state_dtype != torch.float32:
         a, b, Cm = a.to(state_dtype), b.to(state_dtype), Cm.to(state_dtype)
     pa, pb = associative_scan(a, b)
-    h_all = pb + pa * h[:, None]
+    h_all = mul_add(pa, h[:, None], pb)
     return (torch.einsum("bscn,bsn->bsc", h_all.float(), Cm.float()),
             h_all[:, -1])
 
@@ -336,10 +337,10 @@ def ssm_scan_chunked(dt, A, Bm, Cm, x, *, chunk: int = SCAN_CHUNK,
     """y (B,S,D) f32: the function of :func:`ssm_scan` as the JAX package's
     Mamba1 training computes it, chunk after chunk, each by an associative
     scan.  With an f32 state the chunks are ``chunk`` steps long, the last
-    may be shorter; with a bf16 state the chunk is shrunk to the largest
-    divisor of S, as the JAX package shrinks ``cfg.ssm_chunk``, because
-    there the chunks' bounds decide where the state is rounded: this then
-    gives the JAX ``_assoc_scan_chunked``'s states bit for bit.  Where
+    may be shorter; with a bf16 or f16 state the chunk is shrunk to the
+    largest divisor of S, as the JAX package shrinks ``cfg.ssm_chunk``,
+    because there the chunks' bounds decide where the state is rounded:
+    this then gives the JAX ``_assoc_scan_chunked``'s states bit for bit.  Where
     gradients are recorded each chunk runs under
     ``torch.utils.checkpoint``: the forward keeps only each chunk's
     starting state, and the backward rebuilds one chunk's (B, chunk, D, N)
@@ -370,8 +371,8 @@ class SSMScan(torch.autograd.Function):
     sequential plain version on the CPU); backward through autograd of
     :func:`ssm_scan_chunked` at the same state dtype and ``chunk``,
     recomputed from the saved inputs, so the gradients are bit for bit
-    those of ``ssm_scan_chunked`` (at bf16: the JAX package's gradients
-    through its bf16 chunked scan)."""
+    those of ``ssm_scan_chunked`` (at bf16 or f16: the JAX package's
+    gradients through its chunked scan in that dtype)."""
 
     @staticmethod
     def forward(ctx, dt, A, Bm, Cm, x, state_dtype=torch.float32,

@@ -19,15 +19,17 @@ twin materialises (B, S, n_heads, head_dim, N) instead.
 
 The config knobs that change only how the JAX package computes the same
 function (``fused_ssm_y``, ``unroll_scans``) are ignored here.
-``ssm_scan_dtype`` is honoured (``scan_mode``): at "bfloat16" the scan
-carries its state in bf16 (the kernel's bf16-state mode, and the same
-roundings in the plain version and in the training backward), and only
-then is ``ssm_chunk`` read: the backward's chunked scan takes the JAX
-package's chunk, because where the chunks end decides where a bf16 state
-is rounded.  An f32 state's backward takes ``ops.SCAN_CHUNK``.  As in the
-JAX package, a prefill under "bfloat16" computes its output from the bf16
+``ssm_scan_dtype`` is honoured (``scan_mode``): at "bfloat16" or
+"float16" the scan carries its state in that dtype (the kernel's mode of
+it, and the same roundings in the plain version and in the training
+backward), and only then is ``ssm_chunk`` read: the backward's chunked
+scan takes the JAX package's chunk, because where the chunks end decides
+where such a state is rounded.  An f32 state's backward takes
+``ops.SCAN_CHUNK``.  "float64" is the f32 mode: the JAX package never
+enables x64, so ``astype(float64)`` gives it f32 arrays.  As in the JAX
+package, a prefill with a bf16 or f16 state computes its output from that
 scan and hands decode the f32 state of the unrounded inputs (a second
-launch, in f32), and decode runs in f32.  Other dtypes (float16) raise.
+launch, in f32), and decode runs in f32.  Any other name raises.
 """
 from __future__ import annotations
 
@@ -37,33 +39,35 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssm_scan.ops import SCAN_CHUNK, SSMScan, ssm_scan
 from repro_torch.models.layers import dense, dense_init, rms_norm
 
-# cfg.ssm_scan_dtype -> the dtype the scan carries its state in
-SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# cfg.ssm_scan_dtype -> the dtype the scan carries its state in; float64
+# as the JAX package computes it, without x64: in f32
+SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16, "float64": torch.float32}
 
 
 def check_scan_dtype(cfg):
     if cfg.ssm_scan_dtype not in SCAN_DTYPES:
         raise NotImplementedError(
-            f"{cfg.name}: ssm_scan_dtype={cfg.ssm_scan_dtype!r} is not ported "
-            f"yet (ROADMAP queue 2 A3); the port's scan carries its state in "
-            f"float32 or bfloat16")
+            f"{cfg.name}: ssm_scan_dtype={cfg.ssm_scan_dtype!r} is not "
+            f"ported; no config of the JAX package sets it, and the port's "
+            f"scan carries its state in one of {sorted(SCAN_DTYPES)}")
 
 
 def scan_mode(cfg) -> tuple:
     """(state dtype, chunk of the training backward's chunked scan) for
-    ``cfg.ssm_scan_dtype``: bf16 with ``cfg.ssm_chunk``, or f32 with
-    ``ops.SCAN_CHUNK``."""
+    ``cfg.ssm_scan_dtype``: bf16 or f16 with ``cfg.ssm_chunk``, or f32
+    with ``ops.SCAN_CHUNK``."""
     check_scan_dtype(cfg)
     sdt = SCAN_DTYPES[cfg.ssm_scan_dtype]
-    return sdt, cfg.ssm_chunk if sdt == torch.bfloat16 else SCAN_CHUNK
+    return sdt, SCAN_CHUNK if sdt == torch.float32 else cfg.ssm_chunk
 
 
 def _scan(cfg, dt, A, Bm, Cm, x, return_state: bool):
     """The selective scan of a Mamba layer's forward in ``cfg``'s mode: the
     wrapper, or ``SSMScan`` where gradients are recorded.  With
     ``return_state`` (a prefill, no gradient) also the final state in
-    f32: under a bf16 state that of a second, f32 launch on the same
-    unrounded inputs, as the JAX prefill's second pass computes it."""
+    f32: under a bf16 or f16 state that of a second, f32 launch on the
+    same unrounded inputs, as the JAX prefill's second pass computes it."""
     sdt, chunk = scan_mode(cfg)
     if return_state:
         if sdt == torch.float32:
@@ -241,8 +245,8 @@ def mamba2_apply(p, x, cfg, *, return_state: bool = False):
     """x (B,S,d) -> (B,S,d).  With ``return_state`` also the state after the
     last token, dict(conv (B,K-1,d_inner+2N), h (B,nh,head_dim,N) f32), as
     a prefill hands it to decode: the scan's own final state (the JAX
-    prefill scans a second time for it; so does this one under a bf16
-    state, ``_scan``)."""
+    prefill scans a second time for it; so does this one under a bf16 or
+    f16 state, ``_scan``)."""
     b = x.shape[0]
     z, xbc, dt = _mamba2_split(p, x, cfg)
     xbc_conv = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))

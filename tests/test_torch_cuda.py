@@ -193,10 +193,25 @@ def test_radix_bucket_on_the_card_verifies(cuda):
 # the sweep of tests/test_kernels.py plus the smallest and a ragged length
 ATTN_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 130, 8, 8, 32),
               (2, 384, 6, 3, 128), (1, 1, 4, 2, 16), (1, 17, 8, 2, 128)]
+# |kernel - plain| <= tol + tol * |plain| by dtype: the plain version rounds
+# the scores to a 2-byte dtype as the JAX einsum does, the kernel keeps
+# them in f32
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+# a 2-byte result against the plain version in f32 (only the kernel's own
+# roundings, P and the output, are left): (atol, rtol)
+ATTN_F32_TOL = {torch.bfloat16: (4e-3, 2e-2), torch.float16: (1e-3, 4e-3)}
+
+
+def _holds_to_f32_plain(out, q, k, v, causal=True):
+    atol, rtol = ATTN_F32_TOL[out.dtype]
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                              causal=causal),
+        atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("b,s,h,kh,hd", ATTN_SWEEP)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
 def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kh, hd, dtype):
     gen = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
@@ -206,20 +221,37 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kh, hd, dtype):
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(),
                                fa.flash_attention_plain(q, k, v).float(),
                                atol=tol, rtol=tol)
-    if dtype == torch.bfloat16:
-        # the plain version in f32 leaves only the kernel's own roundings
-        torch.testing.assert_close(
-            out.float(), fa.flash_attention_plain(q.float(), k.float(),
-                                                  v.float()),
-            atol=4e-3, rtol=2e-2)
+    if dtype != torch.float32:
+        _holds_to_f32_plain(out, q, k, v)
 
 
 # every head dim the kernel takes, batch 2, lengths that end inside, on and
 # past a 128-row tile, GQA groups 1 and 4
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 129, 300, 2048])
+@pytest.mark.parametrize("group", [1, 4])
+def test_flash_attention_f16_kernel_across_head_dims(cuda, hd, s, group):
+    """The f16 mode of the tensor-core kernel, as the bf16 one below."""
+    gen = torch.Generator(device=cuda).manual_seed(hd * s + group)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).half()
+               for shape in ((2, s, 4, hd), (2, s, 4 // group, hd),
+                             (2, s, 4 // group, hd)))
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == torch.float16
+    tol = ATTN_TOL[torch.float16]
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_plain(q, k, v).float(),
+                               atol=tol, rtol=tol)
+    _holds_to_f32_plain(out, q, k, v)
+
+
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 @pytest.mark.parametrize("s", [1, 63, 129, 300, 2048])
 @pytest.mark.parametrize("group", [1, 4])
@@ -239,17 +271,17 @@ def test_flash_attention_bf16_kernel_across_head_dims(cuda, hd, s, group):
         atol=4e-3, rtol=2e-2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
 def test_flash_attention_kernel_non_causal_and_strided(cuda, dtype):
     """Other kv lengths without the mask; q read through its strides (a
     head-sliced view) and k/v as slices of a wider head dim.  The f32
-    kernel takes rows at any alignment; the bf16 kernel copies rows with
-    TMA, which needs 16-byte aligned rows, so a row stride of 68 elements
-    raises."""
+    kernel takes rows at any alignment; the bf16 and f16 kernel copies rows
+    with TMA, which needs 16-byte aligned rows, so a row stride of 68
+    elements raises."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(2, 70, 8, 64, generator=gen, device=cuda).to(dtype)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    widths = (72,) if dtype == torch.bfloat16 else (68, 72)
+    tol = ATTN_TOL[dtype]
+    widths = (68, 72) if dtype == torch.float32 else (72,)
     for width in widths:
         k, v = (torch.randn(2, 150, 2, width, generator=gen, device=cuda)
                 .to(dtype)[..., :64] for _ in range(2))
@@ -259,7 +291,7 @@ def test_flash_attention_kernel_non_causal_and_strided(cuda, dtype):
                 out.float(), fa.flash_attention_plain(qq, k, v,
                                                       causal=False).float(),
                 atol=tol, rtol=tol)
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         k = torch.zeros(2, 150, 2, 68, dtype=dtype, device=cuda)[..., :64]
         with pytest.raises(ValueError, match="16-byte"):
             fa.flash_attention(q, k, k, causal=False)
@@ -397,6 +429,8 @@ SSM_MIXES = {"f32": (torch.float32,) * 4,
              # dt, x, Bm, Cm as the model gives them
              "model": (torch.float32, torch.bfloat16, torch.bfloat16,
                        torch.bfloat16),
+             # and as a model at dtype "float16" gives them
+             "f16": accuracy.F16_MIX,
              "other": (torch.bfloat16, torch.float32, torch.float32,
                        torch.bfloat16)}
 
@@ -474,13 +508,13 @@ def test_ssm_scan_kernel_at_the_serving_width(cuda):
     torch.testing.assert_close(h, hp, atol=1e-5, rtol=1e-5)
 
 
-def _bf16_state_holds(out, ref, args):
-    """A bf16-state result against the plain version's: the state bit for
-    bit, y within 1e-5 + 1e-5 * sum_n |h_n C_n| (the same f32 products
-    summed in another order)."""
+def _low_state_holds(out, ref, args, state_dtype=torch.bfloat16):
+    """A bf16- or f16-state result against the plain version's: the state
+    bit for bit, y within 1e-5 + 1e-5 * sum_n |h_n C_n| (the same f32
+    products summed in another order)."""
     assert torch.equal(out[1], ref[1])
-    assert accuracy.over_bound(out[0], ref[0],
-                               accuracy.terms_bf16(*args)) <= 1
+    assert accuracy.over_bound(out[0], ref[0], accuracy.terms(
+        *args, state_dtype=state_dtype)) <= 1
 
 
 @pytest.mark.parametrize("b,s,d,n", SSM_SWEEP)
@@ -495,7 +529,7 @@ def test_ssm_scan_bf16_state_kernel_matches_plain(cuda, b, s, d, n, mix):
                            state_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert ssm_ops.ssm_scan.launches == before + 1
-    _bf16_state_holds(out, ssm_ops.ssm_scan_plain(
+    _low_state_holds(out, ssm_ops.ssm_scan_plain(
         *args, return_state=True, state_dtype=torch.bfloat16), args)
     again = ssm_ops.ssm_scan(*args, return_state=True,
                              state_dtype=torch.bfloat16)
@@ -515,7 +549,45 @@ def test_ssm_scan_bf16_state_kernel_at_long_memory(cuda, n, kind):
                            state_dtype=torch.bfloat16)
     ref = ssm_ops.ssm_scan_plain(*args, return_state=True,
                                  state_dtype=torch.bfloat16)
-    _bf16_state_holds(out, ref, args)
+    _low_state_holds(out, ref, args)
+    f32 = ssm_ops.ssm_scan_plain(*args)
+    assert (out[0] - ref[0]).abs().max() < (out[0] - f32).abs().max()
+
+
+@pytest.mark.parametrize("b,s,d,n", SSM_SWEEP)
+@pytest.mark.parametrize("mix", ["f32", "model", "f16"])
+def test_ssm_scan_f16_state_kernel_matches_plain(cuda, b, s, d, n, mix):
+    """ssm_scan_dtype "float16": one launch; the state the plain version's
+    bit for bit (expf, f16 products exact in f32, the sum rounded to f32
+    and then to f16, as ``ref.mul_add``), y within the bound of its terms;
+    a second call the same bits."""
+    args = _ssm_inputs(cuda, b, s, d, n, mix, seed=s)
+    before = ssm_ops.ssm_scan.launches
+    out = ssm_ops.ssm_scan(*args, return_state=True,
+                           state_dtype=torch.float16)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    _low_state_holds(out, ssm_ops.ssm_scan_plain(
+        *args, return_state=True, state_dtype=torch.float16), args,
+        torch.float16)
+    again = ssm_ops.ssm_scan(*args, return_state=True,
+                             state_dtype=torch.float16)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+
+
+@pytest.mark.parametrize("n,kind", [(16, "long"), (64, "long"),
+                                    (64, "mamba2")])
+def test_ssm_scan_f16_state_kernel_at_long_memory(cuda, n, kind):
+    """Long memory and zamba2's Mamba2 call at 2048 steps in an f16
+    model's mix: the f16 state bit for bit, and y nearer the f16-state
+    plain version than the f32 one (the mode acts)."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    args = accuracy.inputs(1, 2048, 256, n, accuracy.F16_MIX, kind, gen=gen)
+    out = ssm_ops.ssm_scan(*args, return_state=True,
+                           state_dtype=torch.float16)
+    ref = ssm_ops.ssm_scan_plain(*args, return_state=True,
+                                 state_dtype=torch.float16)
+    _low_state_holds(out, ref, args, torch.float16)
     f32 = ssm_ops.ssm_scan_plain(*args)
     assert (out[0] - ref[0]).abs().max() < (out[0] - f32).abs().max()
 
@@ -543,17 +615,36 @@ def test_ssm_scan_function_bf16_grads_are_chunked_autograd_bit_for_bit(
     assert all(torch.equal(u, w) for u, w in zip(got, want))
 
 
+def test_ssm_scan_function_f16_grads_are_chunked_autograd_bit_for_bit(cuda):
+    """SSMScan with an f16 state on an f16 model's inputs: the f16-state
+    kernel forward once, and the gradients those of autograd through
+    ssm_scan_chunked at f16 and the JAX chunk, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    ins = [t.detach().requires_grad_() for t in accuracy.inputs(
+        2, 77, 40, 5, accuracy.F16_MIX, gen=gen)]
+    g = torch.randn((2, 77, 40), generator=gen, device=cuda)
+    before = ssm_ops.ssm_scan.launches
+    y = ssm_ops.SSMScan.apply(*ins, torch.float16, 8)
+    got = torch.autograd.grad(y, ins, g)
+    want = torch.autograd.grad(ssm_ops.ssm_scan_chunked(
+        *ins, chunk=8, state_dtype=torch.float16), ins, g)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    assert all(u.dtype == t.dtype and torch.equal(u, w)
+               for u, w, t in zip(got, want, ins))
+
+
 def test_ssm_scan_kernel_raises_not_falls_back(cuda):
     dt, A, bm, cm, x = _ssm_inputs(cuda, 1, 8, 16, 4, "f32")
     with pytest.raises(ValueError):
-        ssm_ops.ssm_scan(dt.half(), A, bm, cm, x)
+        ssm_ops.ssm_scan(dt.double(), A, bm, cm, x)
     with pytest.raises(ValueError):
         ssm_ops.ssm_scan(dt, torch.zeros(16, ssm_ops.MAX_STATE + 1,
                                          device=cuda), bm, cm, x)
     with pytest.raises(ValueError):
         ssm_ops.ssm_scan(dt, A, bm.cpu(), cm, x)
-    with pytest.raises(ValueError, match="ROADMAP queue 2 A3"):
-        ssm_ops.ssm_scan(dt, A, bm, cm, x, state_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        ssm_ops.ssm_scan(dt, A, bm, cm, x, state_dtype=torch.float64)
 
 
 def test_ssm_f32_token_check_at_reduced_widths(cuda, monkeypatch):
@@ -789,6 +880,8 @@ def test_peer_frames_carry_cuda_tensors(cuda, tier):
     (1, 300, 8, 2, 64, torch.float32, "blockwise"),
     (1, 256, 8, 8, 128, torch.bfloat16, "full"),
     (1, 1024, 8, 2, 128, torch.bfloat16, "blockwise"),
+    (1, 256, 8, 8, 128, torch.float16, "full"),
+    (1, 1024, 8, 2, 112, torch.float16, "blockwise"),
 ])
 def test_flash_attention_grads_are_plain_autograd_bit_for_bit(
         cuda, b, s, h, kh, hd, dtype, mode):
@@ -811,7 +904,7 @@ def test_flash_attention_grads_are_plain_autograd_bit_for_bit(
     want = torch.autograd.grad(plain(q, k, v, causal=True), (q, k, v), g)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), fa.flash_attention_plain(
         q.detach(), k.detach(), v.detach()).float(), rtol=tol, atol=tol)
 
@@ -1021,11 +1114,11 @@ def test_flash_attention_f32_kernel_across_head_dims(cuda, hd, s):
 
 
 @pytest.mark.parametrize("s", [1, 63, 129, 300, 2048])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
 def test_flash_attention_at_head_dim_112_forward_and_backward(cuda, s, dtype):
     """zamba2's shared attention (32 heads, MHA, hd 112) at B = 1: the
-    kernel's forward within the standing tolerances (a bf16 result also
-    against the plain version in f32), and through FlashAttention the
+    kernel's forward within the standing tolerances (a bf16 or f16 result
+    also against the plain version in f32), and through FlashAttention the
     gradients of autograd through the plain path the train step
     differentiates at that length, bit for bit."""
     import functools
@@ -1037,12 +1130,11 @@ def test_flash_attention_at_head_dim_112_forward_and_backward(cuda, s, dtype):
     out = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    tol = ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), fa.flash_attention_plain(
         q, k, v).float(), atol=tol, rtol=tol)
-    if dtype == torch.bfloat16:
-        torch.testing.assert_close(out.float(), fa.flash_attention_plain(
-            q.float(), k.float(), v.float()), atol=4e-3, rtol=2e-2)
+    if dtype != torch.float32:
+        _holds_to_f32_plain(out, q, k, v)
     plain = functools.partial(attend_plain, mode=AttnMode())
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     g = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
@@ -1142,6 +1234,45 @@ def test_hybrid_f32_token_check_at_reduced_widths(cuda, monkeypatch):
         np.testing.assert_array_equal(
             out[r.uid], greedy_reference(cfg, params, r.prompt,
                                          r.max_new_tokens))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "falcon-mamba-7b",
+                                  "zamba2-7b"])
+def test_f16_models_on_the_card_match_the_cpu(cuda, arch):
+    """dtype "float16" (and ssm_scan_dtype "float16" for the SSM families)
+    at reduced widths: the forward's logits on the card, through the f16
+    modes of both kernels, within 1e-2 of the largest |logit| of the same
+    weights' logits on the CPU (f16 products round alike only to an ulp or
+    two)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    base = reduced(get_config(arch))
+    cfg = dataclasses.replace(base, dtype="float16", **(
+        {"ssm_scan_dtype": "float16"} if base.family != "dense" else {}))
+    host = params_to_jax(get_model(cfg).init(
+        torch.Generator().manual_seed(0), cfg))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40), dtype=np.int32))
+    logits, launches = {}, {}
+    for dev in ("cpu", cuda):
+        model = params_from_jax(host, cfg, dev)
+        before = fa.flash_attention.launches, ssm_ops.ssm_scan.launches
+        with torch.inference_mode():
+            logits[str(dev)] = get_model(cfg).forward(
+                model, cfg, {"tokens": tok.to(dev)}).float().cpu()
+        launches[str(dev)] = (fa.flash_attention.launches - before[0],
+                              ssm_ops.ssm_scan.launches - before[1])
+    assert launches["cpu"] == (0, 0)
+    want = (cfg.n_layers // cfg.shared_attn_period, cfg.n_layers) \
+        if cfg.family == "hybrid" else {"dense": (cfg.n_layers, 0),
+                                        "ssm": (0, cfg.n_layers)}[cfg.family]
+    assert launches["cuda:0"] == want
+    ref = logits["cpu"]
+    assert torch.isfinite(logits["cuda:0"]).all()
+    assert float((logits["cuda:0"] - ref).abs().max()) <= \
+        1e-2 * float(ref.abs().max())
 
 
 def test_serve_lm_serves_zamba2_on_the_card(cuda):

@@ -252,13 +252,14 @@ def _near(port, ref, tol=BF16_TOL):
 
 
 def test_mamba2_refuses_a_scan_dtype_other_than_float32():
-    """Other than float32 and bfloat16: float16 is not ported and raises.
+    """Other than float32, bfloat16, float16 and float64: a name no JAX
+    config sets raises (float16: tests/test_torch_float16.py).
     ssm_scan_dtype="bfloat16": mamba2_apply within BF16_TOL of the JAX
     package's (measured 1.2e-3) and not the f32 output; the
     training path's forward the same bits as serving's; a prefill hands
     decode the f32 path's state bit for bit; decode ignores the knob."""
     jcfg, tcfg, jp, tp = _mamba2_params(5)
-    cfg = dataclasses.replace(tcfg, ssm_scan_dtype="float16")
+    cfg = dataclasses.replace(tcfg, ssm_scan_dtype="float8_e4m3fn")
     with pytest.raises(NotImplementedError, match="ssm_scan_dtype"):
         TS.mamba2_apply(tp, torch.zeros(1, 3, cfg.d_model), cfg)
     with pytest.raises(NotImplementedError, match="ssm_scan_dtype"):

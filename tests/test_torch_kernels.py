@@ -336,7 +336,7 @@ def test_flash_attention_cpu_path_is_the_plain_version():
     ((1, 8, 4, 256), (1, 8, 4, 256), torch.float32, True),  # above the max
     ((1, 8, 4, 16), (1, 12, 4, 16), torch.float32, True),   # causal Sq != Sk
     ((1, 8, 4, 16), (1, 8, 3, 16), torch.float32, False),   # 4 % 3 heads
-    ((1, 8, 4, 16), (1, 8, 4, 16), torch.float16, True),    # dtype
+    ((1, 8, 4, 16), (1, 8, 4, 16), torch.float64, True),    # dtype
     ((8, 4, 16), (8, 4, 16), torch.float32, True),          # 3-D
 ])
 def test_flash_attention_rejects_what_the_kernel_does_not_take(
@@ -557,7 +557,7 @@ def _bad_ssm(name, value):
 
 
 @pytest.mark.parametrize("args,err", [
-    (_bad_ssm("dt", lambda a: a.half()), ValueError),            # dtype
+    (_bad_ssm("dt", lambda a: a.double()), ValueError),          # dtype
     (_bad_ssm("x", lambda a: a[0]), ValueError),                 # 2-D x
     (_bad_ssm("A", lambda a: a[None]), ValueError),              # 3-D A
     (_bad_ssm("Bm", lambda a: a[:, :4]), ValueError),            # S differs

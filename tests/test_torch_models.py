@@ -625,14 +625,15 @@ def _near(port, ref, tol=BF16_TOL):
 
 
 def test_ssm_scan_dtype_other_than_float32_raises():
-    """Other than float32 and bfloat16: float16 is not ported and raises,
-    naming its ROADMAP item; bfloat16 is honoured."""
+    """Other than the dtypes the JAX package computes (float32, bfloat16,
+    float16, and float64 as f32; tests/test_torch_float16.py): a name no
+    JAX config sets raises, naming itself; bfloat16 is honoured."""
     _, tcfg = _configs(SSM, 2)
-    cfg = dataclasses.replace(tcfg, ssm_scan_dtype="float16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 A3"):
+    cfg = dataclasses.replace(tcfg, ssm_scan_dtype="float8_e4m3fn")
+    with pytest.raises(NotImplementedError, match="'float8_e4m3fn'"):
         get_model(cfg).init(torch.Generator(), cfg)
     _, _, _, tp = _mamba_params(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 A3"):
+    with pytest.raises(NotImplementedError, match="no config of the JAX"):
         TS.mamba1_apply(tp, torch.zeros(1, 3, cfg.d_model), cfg)
     get_model(_bf16(tcfg)).init(torch.Generator(), _bf16(tcfg))
 

@@ -165,7 +165,9 @@ def test_ssm_scan_function_bf16_gradients_match_jax():
 
 
 def test_ssm_scan_refuses_a_state_dtype_other_than_f32_and_bf16():
+    """Other than f32, bf16 and f16 (tests/test_torch_float16.py): a
+    float64 state raises, naming the dtypes the scan carries."""
     t = list(map(torch.from_numpy, _inputs(1, 4, 2, 2, 4)))
     for fn in (ops.ssm_scan, ops.ssm_scan_plain, ops.ssm_scan_chunked):
-        with pytest.raises(ValueError, match="ROADMAP queue 2 A3"):
-            fn(*t, state_dtype=torch.float16)
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            fn(*t, state_dtype=torch.float64)
