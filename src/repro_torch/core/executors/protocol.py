@@ -28,9 +28,11 @@ worker -> parent:
   PART_DONE  {uid, attempt, part, result: bytes|None, error: str|None,
               comm_build_s, p2p_bytes, hub_calls,
               p2p_fallbacks, spills,
-              spans: [(kind, t0, t1), ...]}            one part finished;
+              spans: [(kind, t0, t1, parent, attrs), ...]}
+                                                       one part finished;
               spans are the part's flight-recorder sections in the
-              worker's clock, aligned and merged into the trace by the
+              worker's clock (parent: the index of the span each was
+              opened in), aligned and merged into the trace by the
               parent
   COLL       {uid, attempt, seq, part, payload: bytes} collective contribution
 

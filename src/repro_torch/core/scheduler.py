@@ -73,6 +73,7 @@ from repro_torch.core.executors import (
     ThreadExecutor, VirtualClockExecutor, default_overhead_model,
 )
 from repro_torch.core.pilot import InsufficientResources, ResourceManager
+from repro_torch.obs import spans as _obs_spans
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.core.placement import PACK, PLACEMENTS, SPREAD, Topology
 from repro_torch.core.task import Task, TaskDescription, TaskState
@@ -167,9 +168,10 @@ class SimReport:
     n_speculative: int = 0
     n_retries: int = 0
     trace: list = dataclasses.field(default_factory=list)
-    spans: list = dataclasses.field(default_factory=list)   # worker-side
-    # flight-recorder spans aligned into the executor clock; empty on
-    # backends without instrumented workers (sim/thread) — same schema
+    spans: list = dataclasses.field(default_factory=list)   # flight-
+    # recorder spans of every task attempt, aligned into the executor clock
+    # (thread and process executors; empty on the virtual clock — same
+    # schema)
     telemetry: list = dataclasses.field(default_factory=list)   # heartbeat
     # gauge snapshots ({t, worker, queue_depth, rss_mb, ...}); empty on
     # sim/thread backends
@@ -221,8 +223,8 @@ class SchedulerSession:
         self.pending: list[Task] = []
         self.running: dict[int, Task] = {}
         self.trace: list[TraceEvent] = []
-        self.spans: list[dict] = []      # worker flight-recorder spans,
-        # parent-clock aligned (empty on sim/thread — same schema)
+        self.spans: list[dict] = []      # flight-recorder spans of every
+        # attempt, parent-clock aligned (empty on sim — same schema)
         self.telemetry: list[dict] = []  # heartbeat gauge snapshots
         # durable capture: every TraceEvent/span/telemetry record streams to
         # JSONL as it happens (crash-safe line-buffered writes) when
@@ -235,7 +237,9 @@ class SchedulerSession:
                 n_devices=resource_manager.total, policy=policy,
                 placement=placement, t0=self.t0,
                 backend=type(executor).__name__,
-                wall_clock=bool(executor.wall_clock))
+                wall_clock=bool(executor.wall_clock),
+                **({"wall_offset_ns": _obs_spans.wall_offset_ns()}
+                   if executor.wall_clock else {}))
         self.overhead_total = 0.0
         self.n_speculative = 0
         self.n_retries = 0
@@ -849,8 +853,10 @@ class SchedulerSession:
         task.shm_bytes = ev.shm_bytes
         task.ring_steps = ev.ring_steps
         task.resumed_from_step = ev.resumed_from_step
-        # worker flight-recorder spans arrive piggybacked on the terminal
-        # event, already aligned into this executor's clock
+        # flight-recorder spans arrive piggybacked on the terminal event,
+        # already aligned into this executor's clock; the task keeps the
+        # same dicts the session does
+        task.spans = ev.spans
         self._record_spans(ev.spans)
         stats = {"hub_calls": ev.hub_calls,
                  "p2p_fallbacks": ev.p2p_fallbacks,
@@ -927,6 +933,7 @@ class SchedulerSession:
         target.shm_bytes = ev.shm_bytes
         target.ring_steps = ev.ring_steps
         target.resumed_from_step = ev.resumed_from_step
+        target.spans = ev.spans
         self._done_durations.setdefault(target.desc.name, []).append(
             now - target.start_time)
         self._cache_store(target)

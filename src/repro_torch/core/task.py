@@ -84,6 +84,10 @@ class Task:
     # without dispatching (REPRO_RESULT_CACHE)
     cache_key: str = ""              # result-cache digest of (fn, args,
     # kwargs, ranks); "" when the payload is uncacheable
+    spans: list = dataclasses.field(default_factory=list)   # the last
+    # attempt's flight-recorder spans, the same dicts the session keeps:
+    # [{kind, t0, t1, parent, attrs, worker, part, uid, task}, ...] on the
+    # executor clock (empty on the virtual clock)
 
     @property
     def run_seconds(self) -> float:

@@ -15,6 +15,15 @@ buffers have per-destination capacity slack; overflow is detected and
 reported (overflow flag), never silently dropped.  The send buffers are
 packed through the ``radix_partition`` kernel, so every shuffle on the card
 launches it.
+
+Each stage of an operator, over all ranks, is a span of the thread's flight
+recorder (``obs.spans.current_recorder``; a no-op outside a task):
+``df.target``, ``df.pack``, ``df.exchange`` (attribute ``bytes``: what the
+collectives' input buffers hold, from their shapes), ``df.compact``,
+``df.local_sort`` and ``df.join_inner``.  They are host spans: the host
+issuing the stage's kernels, waits inside that issue included (a full
+launch queue, a call that synchronises); no span adds a synchronisation,
+and none is the device's time.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from repro_torch.dataframe import comm
 from repro_torch.dataframe import ops_local as L
 from repro_torch.dataframe.table import DistTable, Table, from_numpy
 from repro_torch.kernels.radix_partition.ops import radix_partition
+from repro_torch.obs.spans import current_recorder
 
 
 class ShuffleOverflow(RuntimeError):
@@ -96,29 +106,43 @@ def _local_shuffle_pack(table: Table, target, n_parts: int, send_cap: int):
     return bufs, sent, overflow
 
 
+def _nbytes(xs: list) -> int:
+    """Bytes the tensors hold, from their shapes (no device read)."""
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
 def _shuffle(shards: list, targets: list, devices: list, slack: float):
     """Shuffle every rank's rows to their target ranks.  Returns (per-rank
     Tables with capacity P*send_cap, overflow flag per rank)."""
+    rec = current_recorder()
     n_parts = comm.axis_size(devices)
     send_cap = int(shards[0].capacity * slack) // n_parts + 8
-    packs = [_local_shuffle_pack(t, tgt, n_parts, send_cap)
-             for t, tgt in zip(shards, targets, strict=True)]
-    recv = {k: comm.all_to_all([p[0][k] for p in packs], devices)
-            for k in shards[0].columns}                   # (P, send_cap, ...)
-    recv_counts = comm.all_to_all([p[1].reshape(-1, 1) for p in packs],
-                                  devices)                # (P, 1)
-    ovf = comm.psum([p[2].to(torch.int32) for p in packs], devices)
+    with rec.span("df.pack"):
+        packs = [_local_shuffle_pack(t, tgt, n_parts, send_cap)
+                 for t, tgt in zip(shards, targets, strict=True)]
+        sends = {k: [p[0][k] for p in packs] for k in shards[0].columns}
+        counts = [p[1].reshape(-1, 1) for p in packs]
+        flags = [p[2].to(torch.int32) for p in packs]
+    moved = sum(_nbytes(b) for b in sends.values()) + _nbytes(counts) \
+        + _nbytes(flags)
+    with rec.span("df.exchange", bytes=moved):
+        recv = {k: comm.all_to_all(b, devices)
+                for k, b in sends.items()}                # (P, send_cap, ...)
+        recv_counts = comm.all_to_all(counts, devices)    # (P, 1)
+        ovf = comm.psum(flags, devices)
     out = []
-    for r, dev in enumerate(devices):
-        # rows arrive as P blocks with per-block validity: mark ALL slots
-        # valid, then compact by the true receive mask
-        pos_in_block = torch.arange(send_cap, device=dev)[None, :]
-        rvalid = (pos_in_block < recv_counts[r][:, 0][:, None]).reshape(-1)
-        cols = {k: v[r].reshape((-1,) + v[r].shape[2:])
-                for k, v in recv.items()}
-        t = Table(columns=cols, nrows=torch.tensor(
-            rvalid.shape[0], dtype=torch.int32, device=dev))
-        out.append(L.filter_rows(t, rvalid))
+    with rec.span("df.compact"):
+        for r, dev in enumerate(devices):
+            # rows arrive as P blocks with per-block validity: mark ALL
+            # slots valid, then compact by the true receive mask
+            pos_in_block = torch.arange(send_cap, device=dev)[None, :]
+            rvalid = (pos_in_block
+                      < recv_counts[r][:, 0][:, None]).reshape(-1)
+            cols = {k: v[r].reshape((-1,) + v[r].shape[2:])
+                    for k, v in recv.items()}
+            t = Table(columns=cols, nrows=torch.tensor(
+                rvalid.shape[0], dtype=torch.int32, device=dev))
+            out.append(L.filter_rows(t, rvalid))
     return out, [o > 0 for o in ovf]
 
 
@@ -152,28 +176,34 @@ def make_shuffle(comm_obj, slack: float = 2.0, on_overflow: str = "return"):
 # distributed sample sort
 # ---------------------------------------------------------------------------
 def _dist_sort(shards: list, key: str, devices: list, slack: float):
+    rec = current_recorder()
     n_parts = comm.axis_size(devices)
-    ts = [L.sort_by(t, key) for t in shards]
-    samples = []
-    for t in ts:
-        # sample n_parts values per rank at even quantiles of the VALID rows
-        q = (torch.arange(n_parts, dtype=torch.float32, device=t.device)
-             + 0.5) / n_parts
-        nr = torch.clamp(t.nrows, min=1).to(torch.float32)
-        idx = torch.clamp((q * nr).to(torch.int32), 0, t.capacity - 1)
-        samples.append(t.columns[key][idx.long()])                # (P,)
-    all_samples = comm.all_gather(samples, devices)               # (P, P)
-    targets = []
-    for t, a in zip(ts, all_samples, strict=True):
-        ssorted = torch.sort(a.reshape(-1)).values
-        splitters = ssorted[torch.arange(1, n_parts, device=t.device)
-                            * n_parts].contiguous()               # (P-1,)
-        target = torch.searchsorted(L.search_image(splitters),
-                                    L.search_image(t.columns[key]),
-                                    right=True)
-        targets.append(torch.where(t.valid_mask(), target.to(torch.int32), 0))
+    with rec.span("df.local_sort"):
+        ts = [L.sort_by(t, key) for t in shards]
+    with rec.span("df.target"):
+        samples = []
+        for t in ts:
+            # sample n_parts values per rank at even quantiles of the VALID
+            # rows
+            q = (torch.arange(n_parts, dtype=torch.float32, device=t.device)
+                 + 0.5) / n_parts
+            nr = torch.clamp(t.nrows, min=1).to(torch.float32)
+            idx = torch.clamp((q * nr).to(torch.int32), 0, t.capacity - 1)
+            samples.append(t.columns[key][idx.long()])            # (P,)
+        all_samples = comm.all_gather(samples, devices)           # (P, P)
+        targets = []
+        for t, a in zip(ts, all_samples, strict=True):
+            ssorted = torch.sort(a.reshape(-1)).values
+            splitters = ssorted[torch.arange(1, n_parts, device=t.device)
+                                * n_parts].contiguous()           # (P-1,)
+            target = torch.searchsorted(L.search_image(splitters),
+                                        L.search_image(t.columns[key]),
+                                        right=True)
+            targets.append(torch.where(t.valid_mask(),
+                                       target.to(torch.int32), 0))
     shuffled, ovf = _shuffle(ts, targets, devices, slack)
-    return [L.sort_by(s, key) for s in shuffled], ovf
+    with rec.span("df.local_sort"):
+        return [L.sort_by(s, key) for s in shuffled], ovf
 
 
 def make_dist_sort(comm_obj, key: str, slack: float = 2.0,
@@ -194,17 +224,26 @@ def _hash_target(t: Table, key: str, n_parts: int) -> torch.Tensor:
     return torch.where(t.valid_mask(), h, 0)
 
 
+def _hash_targets(shards: list, key: str, n_parts: int) -> list:
+    with current_recorder().span("df.target"):
+        return [_hash_target(t, key, n_parts) for t in shards]
+
+
 def _dist_join(left: list, right: list, key: str, devices: list,
                slack: float, out_factor: float):
+    rec = current_recorder()
     n_parts = comm.axis_size(devices)
-    ls, ovl = _shuffle(left, [_hash_target(t, key, n_parts) for t in left],
-                       devices, slack)
-    rs, ovr = _shuffle(right, [_hash_target(t, key, n_parts) for t in right],
-                       devices, slack)
+    ls, ovl = _shuffle(left, _hash_targets(left, key, n_parts), devices,
+                       slack)
+    rs, ovr = _shuffle(right, _hash_targets(right, key, n_parts), devices,
+                       slack)
     out_cap = int(max(left[0].capacity, right[0].capacity) * out_factor)
-    joined = [L.join_inner(a, b, key, out_cap)
-              for a, b in zip(ls, rs, strict=True)]
-    ovj = comm.psum([j[1].to(torch.int32) for j in joined], devices)
+    with rec.span("df.join_inner"):
+        joined = [L.join_inner(a, b, key, out_cap)
+                  for a, b in zip(ls, rs, strict=True)]
+    flags = [j[1].to(torch.int32) for j in joined]
+    with rec.span("df.exchange", bytes=_nbytes(flags)):
+        ovj = comm.psum(flags, devices)
     ovf = [a | b | (c > 0) for a, b, c in zip(ovl, ovr, ovj, strict=True)]
     return [j[0] for j in joined], ovf
 
@@ -230,7 +269,7 @@ def make_dist_groupby_sum(comm_obj, key: str, value_cols, slack: float = 2.0,
     def _gb(table: DistTable):
         n_parts = comm.axis_size(devices)
         shuffled, ovf = _shuffle(
-            table.shards, [_hash_target(t, key, n_parts) for t in table.shards],
+            table.shards, _hash_targets(table.shards, key, n_parts),
             devices, slack)
         return _result([L.groupby_sum(s, key, value_cols) for s in shuffled],
                        ovf)

@@ -4,7 +4,10 @@ Produces the JSON object format (``{"traceEvents": [...]}``) both
 ``chrome://tracing`` and https://ui.perfetto.dev load directly:
 
 * one *process* row per worker, holding that worker's span lanes (``X``
-  complete events; concurrent parts get separate ``tid`` lanes),
+  complete events; concurrent parts get separate ``tid`` lanes, nested
+  spans stack on their part's lane; a span's parent index and attributes
+  go into its ``args``; the thread executor's tasks share the row
+  ``worker thread``),
 * a ``scheduler`` process whose lanes carry the dispatch->terminal slice of
   every task (reconstructed from the event stream — present even for
   span-less sim/thread traces) plus instant markers for the pool-level
@@ -105,13 +108,15 @@ def export_perfetto(rec, path=None) -> dict:
                            in part_iv.items()])}
         for s in by_worker[wid]:
             key = (s.get("uid", -1), s.get("part", 0))
+            args = {"task": s.get("task", ""), "uid": s.get("uid", -1),
+                    "part": s.get("part", 0)}
+            if s.get("parent") is not None:
+                args["parent"] = s["parent"]
+            args.update(s.get("attrs") or {})
             events.append({"ph": "X", "ts": s["t0"] * _US,
                            "dur": max(s["t1"] - s["t0"], 0.0) * _US,
                            "pid": pid, "tid": lane_of[key], "cat": "span",
-                           "name": s["kind"],
-                           "args": {"task": s.get("task", ""),
-                                    "uid": s.get("uid", -1),
-                                    "part": s.get("part", 0)}})
+                           "name": s["kind"], "args": args})
 
     # --- counter tracks: one per (worker, gauge) ---------------------------
     for rec_t in getattr(rec, "telemetry", ()) or ():

@@ -34,15 +34,22 @@ regardless of what the neighbouring slots are doing
 (``tests/test_torch_serve.py``).
 
 Observability: counters (``serve_admitted`` / ``serve_completed`` /
-``serve_evicted`` / ``serve_decode_steps`` / ``serve_prefill_tokens``) and
-gauges (``serve_queue_depth`` / ``serve_slots_active``) live in a
-:class:`repro_torch.obs.MetricsRegistry`; ``ServeDriver`` surfaces snapshots
-as ``telemetry`` TraceEvents and feeds the autoscaler from them.
+``serve_evicted`` / ``serve_decode_steps`` / ``serve_prefill_tokens``, and
+``serve_admit_wait_us``, the µs admissions waited between their prefill's
+end and their ``insert``) and gauges (``serve_queue_depth`` /
+``serve_slots_active``) live in a :class:`repro_torch.obs.MetricsRegistry`;
+``ServeDriver`` surfaces snapshots as ``telemetry`` TraceEvents and feeds
+the autoscaler from them.  Inside a task, the thread's flight recorder
+(``obs.spans``) records ``prefill_issue`` and ``prefill_sync`` (attribute
+``req``, the request's uid) and each round's ``decode_issue`` and
+``decode_sync`` (attribute ``slots``, the active slots): host time issuing
+the work, and host time blocked in the readback that ends it.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
+from time import perf_counter
 from typing import Optional, Sequence
 
 import numpy as np
@@ -52,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
 from repro_torch.models.attention import AttnMode
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.spans import current_recorder
 from repro_torch.serve.engine import (Request, model_device,
                                       modal_dummy_inputs, prompt_prefix_len,
                                       tokens_tensor)
@@ -115,6 +123,8 @@ class Admission:
     req: Request
     cache: dict         # prefill cache, batch size 1, owned by this record
     first_tok: int
+    ready: float = dataclasses.field(default_factory=perf_counter)
+    # perf_counter when the prefill ended (the record's construction)
 
 
 class ContinuousEngine:
@@ -187,13 +197,16 @@ class ContinuousEngine:
         """Prefill one request into a fresh single-slot cache (pure w.r.t.
         the shared cache).  The prefill logits yield the first generated
         token, exactly like the static engine."""
-        batch = {"tokens": tokens_tensor(req.prompt[None], self.device),
-                 **modal_dummy_inputs(self.cfg, 1, self.device)}
-        cache, logits = self.api.prefill(self.params, self.cfg, batch,
-                                         self.max_seq, AttnMode())
-        self.metrics.inc("serve_prefill_tokens", len(req.prompt))
-        return Admission(req=req, cache=cache,
-                         first_tok=int(logits[0].argmax()))
+        rec = current_recorder()
+        with rec.span("prefill_issue", req=req.uid):
+            batch = {"tokens": tokens_tensor(req.prompt[None], self.device),
+                     **modal_dummy_inputs(self.cfg, 1, self.device)}
+            cache, logits = self.api.prefill(self.params, self.cfg, batch,
+                                             self.max_seq, AttnMode())
+            self.metrics.inc("serve_prefill_tokens", len(req.prompt))
+        with rec.span("prefill_sync", req=req.uid):
+            first = int(logits[0].argmax())
+        return Admission(req=req, cache=cache, first_tok=first)
 
     def free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -205,6 +218,8 @@ class ContinuousEngine:
         admission (``max_new_tokens == 1``: the prefill logits were the
         whole generation, no slot needed)."""
         self.metrics.inc("serve_admitted")
+        self.metrics.inc("serve_admit_wait_us",
+                         int((perf_counter() - adm.ready) * 1e6))
         if adm.req.max_new_tokens <= 1:
             self._finish(adm.req, [adm.first_tok])
             return None
@@ -237,20 +252,24 @@ class ContinuousEngine:
         token 0 at position 0 whose cache writes are dead (overwritten by
         the next admission's full-slot copy).  Returns the requests that
         finished this round (their slots are already free)."""
-        if self.slots_active == 0:
+        active = self.slots_active
+        if active == 0:
             return []
-        toks = np.zeros((self.max_batch, 1), np.int64)
-        pos = np.zeros((self.max_batch,), np.int64)
-        for i, s in enumerate(self.slots):
-            if s is not None:
-                toks[i, 0] = s.next_tok
-                pos[i] = s.position
-        logits, self.cache = self.api.decode_step(
-            self.params, self.cfg,
-            {"tokens": tokens_tensor(toks, self.device),
-             "positions": tokens_tensor(pos, self.device)},
-            self.cache)
-        nxt = logits.argmax(-1).cpu().numpy()
+        rec = current_recorder()
+        with rec.span("decode_issue", slots=active):
+            toks = np.zeros((self.max_batch, 1), np.int64)
+            pos = np.zeros((self.max_batch,), np.int64)
+            for i, s in enumerate(self.slots):
+                if s is not None:
+                    toks[i, 0] = s.next_tok
+                    pos[i] = s.position
+            logits, self.cache = self.api.decode_step(
+                self.params, self.cfg,
+                {"tokens": tokens_tensor(toks, self.device),
+                 "positions": tokens_tensor(pos, self.device)},
+                self.cache)
+        with rec.span("decode_sync", slots=active):
+            nxt = logits.argmax(-1).cpu().numpy()
         self.metrics.inc("serve_decode_steps")
         finished = []
         for i, s in enumerate(self.slots):

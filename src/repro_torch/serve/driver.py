@@ -113,7 +113,6 @@ class ServeDriver:
         self._last_telemetry = now
         snap = eng.metrics.snapshot()
         snap["serve_slot_occupancy"] = eng.slots_active / eng.max_batch
-        snap["serve_parked_admissions"] = len(self._parked)
         self.session.record_telemetry(snap, worker="serve-driver")
 
     # -- the loop ----------------------------------------------------------
