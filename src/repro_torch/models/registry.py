@@ -8,6 +8,12 @@ dense and MoE families (the transformer), the VLM family (the transformer
 with stub patch embeddings before the tokens), the SSM family (Mamba1),
 the audio family (the encoder-decoder) and the hybrid family (Mamba2
 groups with a shared attention block).
+
+``decode_graph`` says whether a family's ``decode_step`` may be captured as
+a CUDA graph and replayed (``serve/continuous.py``): its shapes depend on
+the batch alone, it writes the cache it is given in place, and it reads
+nothing back to the host.  A family declares it with a module-level
+``DECODE_GRAPH = True``; only the SSM family (``ssm_lm``) does.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ class ModelApi(NamedTuple):
     prefill: Callable
     decode_step: Callable
     cache_init: Callable
+    decode_graph: bool = False
 
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": vlm,
@@ -37,7 +44,8 @@ def get_model(cfg) -> ModelApi:
     if mod is None:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return ModelApi(mod.init, mod.forward, mod.loss_fn, mod.prefill,
-                    mod.decode_step, mod.cache_init)
+                    mod.decode_step, mod.cache_init,
+                    getattr(mod, "DECODE_GRAPH", False))
 
 
 class _MetaGenerator(torch.Generator):

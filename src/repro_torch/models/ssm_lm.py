@@ -17,7 +17,9 @@ depend on ``smax``.  In a model group only the embedding and
 ``lm_head`` are split (vocabulary-parallel, ``layers.py``): the JAX rules
 give the Mamba weights no ``model`` split.  ``prefill`` takes each layer's final state from the
 same ``ssm_scan`` call that computes its output; ``decode_step`` writes the
-new conv window and state into the cache in place and returns it.
+new conv window and state into the cache in place and returns it.  Its
+shapes depend on the batch alone and it reads nothing back to the host, so
+the serving engine may replay it as a CUDA graph (``DECODE_GRAPH``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ from repro_torch.models.attention import AttnMode
 from repro_torch.models.layers import (cross_entropy_loss, each, embed_apply,
                                        embed_init, frozen, layer_stack,
                                        logits_apply, rms_norm, torch_dtype)
+
+# decode_step may be captured once and replayed (models/registry.py)
+DECODE_GRAPH = True
 
 
 class MambaLM(nn.Module):

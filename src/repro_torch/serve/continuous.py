@@ -33,10 +33,21 @@ own write position, and ``decode_step`` masks attention per element by
 regardless of what the neighbouring slots are doing
 (``tests/test_torch_serve.py``).
 
+On a CUDA device, a family whose ``decode_step`` is declared capturable
+(``ModelApi.decode_graph``: the Mamba1 family) has its step captured in
+``__init__`` as one CUDA graph at ``max_batch`` (:class:`DecodeGraph`): the
+slot cache is the graph's state, and each round copies its token ids and
+positions into the graph's input buffer and replays it, instead of issuing
+the step's thousands of ops one at a time from Python under the
+interpreter lock that the prefill thread shares.  The graph runs the same
+ops in the same dtypes as the eager step.  Other families, and every
+engine on the CPU, run the step eagerly.
+
 Observability: counters (``serve_admitted`` / ``serve_completed`` /
-``serve_evicted`` / ``serve_decode_steps`` / ``serve_prefill_tokens``, and
+``serve_evicted`` / ``serve_decode_steps`` / ``serve_prefill_tokens``,
 ``serve_admit_wait_us``, the µs admissions waited between their prefill's
-end and their ``insert``) and gauges (``serve_queue_depth`` /
+end and their ``insert``, and ``serve_decode_graph_replays``, the rounds
+the graph ran) and gauges (``serve_queue_depth`` /
 ``serve_slots_active``) live in a :class:`repro_torch.obs.MetricsRegistry`;
 ``ServeDriver`` surfaces snapshots as ``telemetry`` TraceEvents and feeds
 the autoscaler from them.  Inside a task, the thread's flight recorder
@@ -127,6 +138,56 @@ class Admission:
     # perf_counter when the prefill ended (the record's construction)
 
 
+class DecodeGraph:
+    """One ``decode_step`` over all ``max_batch`` slots of ``engine``'s cache,
+    captured as a CUDA graph, and the argmax of its logits.
+
+    The engine's slot cache is captured as it is: every replay reads and
+    writes those tensors in place, so ``insert``'s copies into a slot,
+    issued on the same stream, are ordered against the replays.  The token
+    ids and positions go in through one static (2, max_batch) device buffer,
+    filled by one copy from pinned host memory; the next token ids come out
+    in a static (max_batch,) int64 tensor.  The step runs eagerly once on a
+    side stream before the capture, as capture requires (cuBLAS handles,
+    workspaces): its writes land in free slots, which the next admission's
+    copy overwrites."""
+
+    def __init__(self, engine: "ContinuousEngine"):
+        b, dev = engine.max_batch, engine.device
+        self._host = torch.zeros((2, b), dtype=torch.int64).pin_memory()
+        self._staged = self._host.numpy()
+        self._inputs = torch.zeros((2, b), dtype=torch.int64, device=dev)
+        batch = {"tokens": self._inputs[0].view(b, 1),
+                 "positions": self._inputs[1]}
+
+        def step():
+            logits, _ = engine.api.decode_step(engine.params, engine.cfg,
+                                               batch, engine.cache)
+            return logits.argmax(-1)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._graph = torch.cuda.CUDAGraph()
+        # thread_local: a CUDA call that another thread makes meanwhile does
+        # not invalidate the capture
+        with torch.cuda.graph(self._graph, capture_error_mode="thread_local"):
+            self.next_ids = step()
+
+    def replay(self, toks: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """Issue one step for ``toks`` (max_batch, 1) at ``pos``
+        (max_batch,); returns the device tensor that will hold the next
+        token ids.  The pinned buffer is rewritten only after the caller
+        has read the previous round's ids back, which waits for its copy."""
+        self._staged[0] = toks[:, 0]
+        self._staged[1] = pos
+        self._inputs.copy_(self._host, non_blocking=True)
+        self._graph.replay()
+        return self.next_ids
+
+
 class ContinuousEngine:
     """Continuous-batching greedy generation over a slotted KV cache.
 
@@ -160,6 +221,8 @@ class ContinuousEngine:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.metrics.gauge("serve_queue_depth", lambda: len(self.queue))
         self.metrics.gauge("serve_slots_active", lambda: self.slots_active)
+        self.graph = DecodeGraph(self) if (
+            self.device.type == "cuda" and self.api.decode_graph) else None
 
     # -- introspection -----------------------------------------------------
     @property
@@ -263,13 +326,19 @@ class ContinuousEngine:
                 if s is not None:
                     toks[i, 0] = s.next_tok
                     pos[i] = s.position
-            logits, self.cache = self.api.decode_step(
-                self.params, self.cfg,
-                {"tokens": tokens_tensor(toks, self.device),
-                 "positions": tokens_tensor(pos, self.device)},
-                self.cache)
+            if self.graph is None:
+                logits, self.cache = self.api.decode_step(
+                    self.params, self.cfg,
+                    {"tokens": tokens_tensor(toks, self.device),
+                     "positions": tokens_tensor(pos, self.device)},
+                    self.cache)
+            else:
+                ids = self.graph.replay(toks, pos)
+                self.metrics.inc("serve_decode_graph_replays")
         with rec.span("decode_sync", slots=active):
-            nxt = logits.argmax(-1).cpu().numpy()
+            if self.graph is None:
+                ids = logits.argmax(-1)
+            nxt = ids.cpu().numpy()
         self.metrics.inc("serve_decode_steps")
         finished = []
         for i, s in enumerate(self.slots):

@@ -322,8 +322,75 @@ def test_f32_token_check_at_reduced_widths(cuda):
         torch.Generator(device=cuda).manual_seed(0), cfg)
     reqs = make_requests(cfg, [30, 7, 19], [6, 6, 6])
     before = fa.flash_attention.launches
-    out = ContinuousEngine(cfg, params, max_batch=2, max_seq=64).run(reqs)
+    eng = ContinuousEngine(cfg, params, max_batch=2, max_seq=64)
+    out = eng.run(reqs)
     assert fa.flash_attention.launches - before == 2 * len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+    # the dense family does not declare its step capturable: eager rounds
+    assert eng.graph is None and eng.metrics.get("serve_decode_steps") > 0
+    assert eng.metrics.get("serve_decode_graph_replays") == 0
+
+
+def _ssm_serving(cuda, dtype, max_batch):
+    """A reduced falcon-mamba (2 layers) at ``dtype`` on the card and its
+    continuous engine, which captures the decode step as a CUDA graph."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine
+    cfg = dataclasses.replace(reduced(get_config("falcon-mamba-7b")),
+                              n_layers=2, dtype=dtype)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    eng = ContinuousEngine(cfg, params, max_batch=max_batch, max_seq=64)
+    assert eng.graph is not None
+    return cfg, params, eng
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_graph_replay_equals_the_eager_step(cuda, dtype):
+    """One replay of the captured step at max_batch 4, from a random slot
+    cache, against the eager ``decode_step`` and argmax on a clone of that
+    cache: the next token ids and the cache each leaves, bit for bit."""
+    cfg, params, eng = _ssm_serving(cuda, dtype, 4)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (4, 1))
+    pos = rng.integers(0, 64, 4)
+    with torch.inference_mode():
+        for t in eng.cache.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+        start = {n: t.clone() for n, t in eng.cache.items()}
+        clone = {n: t.clone() for n, t in eng.cache.items()}
+        ids = eng.graph.replay(toks, pos).clone()
+        logits, _ = eng.api.decode_step(params, cfg, {
+            "tokens": torch.from_numpy(toks).to(cuda),
+            "positions": torch.from_numpy(pos).to(cuda)}, clone)
+        want = logits.argmax(-1)
+    assert ids.dtype == want.dtype == torch.int64
+    assert torch.equal(ids, want)
+    for n, t in eng.cache.items():
+        assert torch.equal(t, clone[n]), n
+        assert not torch.equal(t, start[n]), n     # the step wrote it
+
+
+def test_ssm_engine_replays_every_round_on_the_card(cuda, monkeypatch):
+    """The reduced falcon-mamba engine in f32 (TF32 off in products and
+    convolutions) against greedy_reference, token for token, with every
+    decode round a replay of the captured step."""
+    from repro_torch.serve import greedy_reference
+    from repro_torch.serve_lm import make_requests
+    assert not torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg, params, eng = _ssm_serving(cuda, "float32", 2)
+    reqs = make_requests(cfg, [30, 7, 19], [6, 6, 6])
+    out = eng.run(reqs)
+    steps = eng.metrics.get("serve_decode_steps")
+    assert steps > 0
+    assert eng.metrics.get("serve_decode_graph_replays") == steps
     for r in reqs:
         np.testing.assert_array_equal(
             out[r.uid], greedy_reference(cfg, params, r.prompt,

@@ -194,6 +194,28 @@ def test_ssm_free_slot_decodes_only_its_own_row():
                            adm2.cache[n])
 
 
+@pytest.mark.parametrize("arch", list_archs())
+def test_only_the_ssm_family_declares_a_capturable_decode_step(arch):
+    """``ModelApi.decode_graph`` is set by the Mamba1 family alone: every
+    other family's step runs eagerly in the continuous engine."""
+    from repro_torch.models import get_model
+    cfg = t_get_config(arch)
+    assert get_model(cfg).decode_graph == (cfg.family == "ssm")
+
+
+def test_ssm_engine_captures_no_graph_on_the_cpu():
+    """On the CPU the Mamba engine runs its decode step eagerly: no graph is
+    captured and no round counts as a replay."""
+    jax_side, (cfg, model) = _make(SSM)
+    eng = ContinuousEngine(cfg, model, max_batch=2, max_seq=32)
+    assert eng.api.decode_graph and eng.graph is None
+    reqs = _reqs(cfg, [(3, 4), (5, 3), (2, 5)])
+    _check_oracles(jax_side, (cfg, model), reqs, eng.run(reqs))
+    assert eng.metrics.get("serve_decode_steps") >= 4
+    assert eng.metrics.get("serve_decode_graph_replays") == 0
+    assert "serve_decode_graph_replays" not in eng.metrics.snapshot()
+
+
 def test_sequence_budget_eviction():
     jax_side, (cfg, model) = _make("granite-3-8b")
     eng = ContinuousEngine(cfg, model, max_batch=2, max_seq=16)
