@@ -26,6 +26,7 @@ _ARCH_MODULES = {
     "granite-3-8b": "granite_3_8b",
     "minitron-8b": "minitron_8b",
     "whisper-medium": "whisper_medium",
+    "jamba2-mini": "jamba2_mini",
 }
 
 

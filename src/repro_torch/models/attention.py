@@ -1,4 +1,5 @@
-"""Attention: GQA with RoPE and optional qk-norm.
+"""Attention: GQA with RoPE (or none: ``qkv_project(rotary=False)``) and
+optional qk-norm.
 
 Three execution paths, mathematically identical:
   * ``attend_full``      — naive softmax attention (small seq / oracle)
@@ -16,7 +17,8 @@ so the CPU tests compare like with like; ``cache_batch_axes`` probes on the
 
 The decode path attends one new token against a padded KV cache with
 per-batch lengths, in plain PyTorch (the JAX package computes it outside any
-Pallas kernel too).
+Pallas kernel too): ``attend_decode`` over the JAX layout (B, Smax, K, hd),
+``attend_decode_heads`` over the port-own Jamba family's (B, K, Smax, hd).
 
 Inside a model group that splits ``wq``'s heads over ``model``
 (``distributed/context.py``), :func:`over_heads` runs an attention
@@ -56,17 +58,22 @@ def attn_init(gen, d_model, n_heads, n_kv_heads, head_dim, qk_norm, dtype):
     return p
 
 
-def qkv_project(p, x, positions, theta, qk_norm, norm_eps, rope=None):
+def qkv_project(p, x, positions, theta, qk_norm, norm_eps, rope=None, *,
+                rotary: bool = True):
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,K,hd) with RoPE applied.
     ``rope``: the (sin, cos) tables of ``positions``
     (``layers.rope_sincos``), where the caller built them once for all of
-    a layer's head shares."""
+    a layer's head shares.  ``rotary=False`` leaves q and k unrotated (a
+    model without positional encoding, Jamba's attention layers);
+    ``positions`` and ``theta`` are then unused."""
     q = dense(x, p["wq"])
     k = dense(x, p["wk"])
     v = dense(x, p["wv"])
     if qk_norm:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
+    if not rotary:
+        return q, k, v
     sin, cos = rope_sincos(positions, q.shape[-1], theta) if rope is None \
         else rope
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
@@ -171,6 +178,33 @@ def attend_decode(q, k_cache, v_cache, lengths):
     w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", w, v_cache)
     return out.reshape(b, 1, h, hd)
+
+
+def attend_decode_heads(q, k_cache, v_cache, lengths):
+    """:func:`attend_decode` over caches laid out (B, K, Smax, hd), each
+    kv head's keys of a sequence contiguous: the batched products take the
+    (sequence, kv head) blocks as they lie, where the (B, Smax, K, hd)
+    layout has them copied whole a step first."""
+    b, _, h, hd = q.shape
+    n_kv = k_cache.shape[1]
+    qg = q.reshape(b, n_kv, h // n_kv, hd)
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, k_cache).float() \
+        * hd ** -0.5
+    valid = torch.arange(k_cache.shape[2], device=q.device)[None, :] \
+        < lengths[:, None]                                      # (B,Smax)
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgt,bktd->bkgd", w, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def cache_update_heads(k_cache, v_cache, k_new, v_new, positions):
+    """:func:`cache_update` into caches laid out (B, K, Smax, hd)."""
+    bidx = torch.arange(k_new.shape[0], device=k_cache.device)
+    pos = positions.long()
+    k_cache[bidx, :, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[bidx, :, pos] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def cache_update(k_cache, v_cache, k_new, v_new, positions):

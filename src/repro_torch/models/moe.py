@@ -32,6 +32,12 @@ Where E does not divide (qwen2-moe's 60 experts on 16 ranks) the experts
 stay whole.  The shared experts' MLP is split as any MLP
 (``layers.mlp_apply``).
 
+Jamba (``models/jamba.py``) calls :func:`moe_ffn_dropless`, the
+published routing of a dropless model: the gates are left as the softmax
+gave them, no pair is ever dropped, and the layer holds the experts
+``[cfg.first_expert, cfg.first_expert + E_held)`` of the router's
+``router.shape[1]``; the pairs routed elsewhere add nothing.
+
 ``moe_ffn_shardmap`` is the JAX package's local-expert EP, which it
 writes per model rank under ``shard_map``: each data shard's tokens route
 on their own, at the capacity of their own count; each model rank owns
@@ -44,6 +50,8 @@ added after.  ``moe_ffn`` switches to it under ``axes_ctx(mesh,
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -91,15 +99,17 @@ def capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
-def route(p, x, cfg):
+def route(p, x, cfg, renormalize: bool = True):
     """x (T, d) -> (expert_idx (T, k) int64, gates (T, k) f32).  Ties
-    between gates go to the lower expert index."""
+    between gates go to the lower expert index; the k gates are scaled to
+    sum to 1 unless ``renormalize`` is False."""
     logits = dense(x.float(), p["router"])
     gates_all = torch.softmax(logits, dim=-1)
     idx = torch.sort(gates_all, dim=-1, descending=True,
                      stable=True).indices[:, :cfg.top_k]
     gates = gates_all.gather(-1, idx)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if renormalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     return idx, gates
 
 
@@ -245,3 +255,102 @@ def moe_ffn_dense_oracle(p, x, cfg, keep=None):
         w = w * keep[..., None].to(sel.dtype)
     out = (sel * w).sum(dim=1)
     return _shared(p, xt, out, cfg).reshape(*lead, -1)
+
+
+# ----------------------------------------------------------------------------
+# dropless dispatch over the experts a layer holds (Jamba)
+# ----------------------------------------------------------------------------
+class HeldPairs:
+    """The device count of the (token, expert) pairs that the dropless
+    layers computed while it was open (:func:`held_pairs`): ``total`` is
+    an int64 device scalar, or None where no such layer ran."""
+
+    def __init__(self):
+        self.total = None
+
+    def add(self, n):
+        self.total = n if self.total is None else self.total + n
+
+
+class _Counting(threading.local):
+    held = None
+
+
+_counting = _Counting()
+
+
+@contextmanager
+def held_pairs():
+    """Count, on the device and without a readback, the pairs that the
+    dropless expert layers issued on this thread inside the block route to
+    their held experts (the serving engine's prefill)."""
+    prev, _counting.held = _counting.held, HeldPairs()
+    try:
+        yield _counting.held
+    finally:
+        _counting.held = prev
+
+
+def grouped_mm(x, w, ends):
+    """Rows ``[ends[e-1], ends[e])`` of ``x`` (P, d) times ``w[e]`` (E, d,
+    f), for each e; the rows from ``ends[-1]`` on are left undefined and
+    cost nothing.  ``ends`` (E,) int32 stays on the device.  One
+    ``torch._grouped_mm`` where it runs its grouped kernel (bf16 on the
+    card) and on the CPU; else (a float32 model on the card, or its
+    ``meta`` twin) a masked product per expert over all the rows, which
+    needs no host copy of the group ends either."""
+    if x.device.type == "cpu" or x.dtype == torch.bfloat16:
+        return torch._grouped_mm(x, w, offs=ends)
+    row = torch.arange(x.shape[0], device=x.device)
+    seg = torch.searchsorted(ends, row.to(ends.dtype), right=True)
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    for e in range(w.shape[0]):
+        out = torch.where((seg == e)[:, None], x @ w[e], out)
+    return out
+
+
+def moe_ffn_dropless(p, x, cfg):
+    """The expert layer of a dropless model over the experts it holds:
+    x (..., d) -> (..., d).
+
+    Every token is routed over all ``router.shape[1]`` experts (f32
+    softmax, top-k with ties to the lower index, the gates not
+    renormalised); the layer holds ``E = wg.shape[0]`` of
+    them from ``cfg.first_expert`` on.  A stable sort groups the T·k pairs
+    by held expert, those of the other experts last; each held expert's
+    products run over its own rows only (:func:`grouped_mm`, the group
+    ends computed on the device), so nothing is padded to a capacity and
+    nothing is dropped.  Each pair's output goes back to its place, is
+    weighted by its gate and summed over the token's k pairs; the pairs of
+    experts held elsewhere give exactly 0.  Nothing is read back to the
+    host."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    T, k = xt.shape[0], cfg.top_k
+    E = p["wg"].shape[0]
+    idx, gates = route(p, xt, cfg, renormalize=False)       # (T, k)
+    local = idx.reshape(-1) - cfg.first_expert
+    mine = (local >= 0) & (local < E)                       # (T*k,)
+    key = torch.where(mine, local, E)
+    order = torch.sort(key, stable=True).indices
+    ends = torch.searchsorted(
+        key[order], torch.arange(1, E + 1, dtype=key.dtype,
+                                 device=key.device)).to(torch.int32)
+    if _counting.held is not None:
+        _counting.held.add(ends[-1].long())
+    rows = xt.index_select(0, order // k)                   # (T*k, d)
+    a = grouped_mm(rows, p["wg"], ends)
+    b = grouped_mm(rows, p["wi"], ends)
+    if torch.is_grad_enabled():
+        h = F.silu(a) * b
+    else:
+        h = F.silu(a, inplace=True).mul_(b)
+    del a, b
+    sorted_out = grouped_mm(h, p["wo"], ends)
+    del h
+    pair_out = torch.index_copy(torch.empty_like(sorted_out), 0, order,
+                                sorted_out).view(T, k, d)
+    out = torch.where(mine.view(T, k, 1),
+                      pair_out * gates[..., None].to(pair_out.dtype),
+                      pair_out.new_zeros(())).sum(dim=1)
+    return out.reshape(*lead, d)

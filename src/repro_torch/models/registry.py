@@ -7,13 +7,15 @@ treat every arch alike.  The port has every family of the JAX package: the
 dense and MoE families (the transformer), the VLM family (the transformer
 with stub patch embeddings before the tokens), the SSM family (Mamba1),
 the audio family (the encoder-decoder) and the hybrid family (Mamba2
-groups with a shared attention block).
+groups with a shared attention block); besides, the port's own ``jamba``
+family (Mamba1 and attention mixers, dense and dropless expert FFNs),
+which the JAX package lacks.
 
 ``decode_graph`` says whether a family's ``decode_step`` may be captured as
 a CUDA graph and replayed (``serve/continuous.py``): its shapes depend on
 the batch alone, it writes the cache it is given in place, and it reads
 nothing back to the host.  A family declares it with a module-level
-``DECODE_GRAPH = True``; only the SSM family (``ssm_lm``) does.
+``DECODE_GRAPH = True``; the SSM family (``ssm_lm``) and ``jamba`` do.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.models import encdec, hybrid, ssm_lm, transformer, vlm
+from repro_torch.models import (encdec, hybrid, jamba, ssm_lm, transformer,
+                                vlm)
 
 
 class ModelApi(NamedTuple):
@@ -36,7 +39,8 @@ class ModelApi(NamedTuple):
 
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": vlm,
-             "ssm": ssm_lm, "audio": encdec, "hybrid": hybrid}
+             "ssm": ssm_lm, "audio": encdec, "hybrid": hybrid,
+             "jamba": jamba}
 
 
 def get_model(cfg) -> ModelApi:

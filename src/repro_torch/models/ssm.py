@@ -17,6 +17,12 @@ head_dim channels (``_mamba2_channels``), so it goes through the same
 wrapper and kernel (N 64 at zamba2: the ``ssm_scan64`` build).  The JAX
 twin materialises (B, S, n_heads, head_dim, N) instead.
 
+A Mamba1 block that carries learned RMS norms on dt, B and C
+(``dt_norm``, ``B_norm``, ``C_norm``; Jamba's ``init`` adds them,
+falcon-mamba's blocks have none) applies them right after ``x_proj`` in
+prefill and in decode, with eps ``cfg.norm_eps``; a block without those
+weights runs unchanged.
+
 The config knobs that change only how the JAX package computes the same
 function (``fused_ssm_y``, ``unroll_scans``) are ignored here.
 ``ssm_scan_dtype`` is honoured (``scan_mode``): at "bfloat16" or
@@ -122,12 +128,17 @@ def mamba1_init(gen: torch.Generator, cfg, dtype) -> dict:
 
 def _mamba1_ssm_inputs(p, x_conv, cfg):
     """The scan's inputs: dt (B,S,di) f32, A (di,N) f32, and Bm, Cm
-    (B,S,N), column slices of ``x_db`` in the model dtype.  (The JAX twin
+    (B,S,N), column slices of ``x_db`` in the model dtype (dt, B and C
+    through their RMS norms first where the block has them).  (The JAX twin
     returns the materialised decay and input instead.)"""
     check_scan_dtype(cfg)
     dtr, st = cfg.dt_rank, cfg.ssm_state
     x_db = dense(x_conv, p["x_proj"])
     dt, Bm, Cm = x_db.split([dtr, st, st], dim=-1)
+    if "dt_norm" in p:
+        dt = rms_norm(dt, p["dt_norm"], cfg.norm_eps)
+        Bm = rms_norm(Bm, p["B_norm"], cfg.norm_eps)
+        Cm = rms_norm(Cm, p["C_norm"], cfg.norm_eps)
     dt = F.softplus(dense(dt, p["dt_proj"]).float()
                     + p["dt_bias"].float())
     A = -torch.exp(p["A_log"])

@@ -52,6 +52,7 @@ SPAN_KINDS = (
     "prefill_sync",   # serve: the first-token readback; attr req
     "decode_issue",   # serve: a decode round up to its readback; attr slots
     "decode_sync",    # serve: the round's logits.argmax(-1).cpu(); attr slots
+    "moe",            # an expert layer's issue (Jamba); attrs layer, tokens
 )
 
 

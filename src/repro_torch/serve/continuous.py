@@ -47,8 +47,11 @@ Observability: counters (``serve_admitted`` / ``serve_completed`` /
 ``serve_evicted`` / ``serve_decode_steps`` / ``serve_prefill_tokens``,
 ``serve_admit_wait_us``, the µs admissions waited between their prefill's
 end and their ``insert``, and ``serve_decode_graph_replays``, the rounds
-the graph ran) and gauges (``serve_queue_depth`` /
-``serve_slots_active``) live in a :class:`repro_torch.obs.MetricsRegistry`;
+the graph ran, and ``serve_moe_pairs_held``, the (token, expert) pairs a
+dropless expert layer's prefills routed to the experts it holds, counted on
+the device and read back with the first token) and gauges
+(``serve_queue_depth`` / ``serve_slots_active``) live in a
+:class:`repro_torch.obs.MetricsRegistry`;
 ``ServeDriver`` surfaces snapshots as ``telemetry`` TraceEvents and feeds
 the autoscaler from them.  Inside a task, the thread's flight recorder
 (``obs.spans``) records ``prefill_issue`` and ``prefill_sync`` (attribute
@@ -69,6 +72,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
 from repro_torch.models.attention import AttnMode
+from repro_torch.models.moe import held_pairs
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.spans import current_recorder
 from repro_torch.serve.engine import (Request, model_device,
@@ -132,7 +136,8 @@ class Admission:
     not touch the shared cache, so prefill work can run concurrently with
     decode rounds (the ServeDriver's task split)."""
     req: Request
-    cache: dict         # prefill cache, batch size 1, owned by this record
+    cache: Optional[dict]   # prefill cache, batch size 1, owned by this
+    #                         record until ``insert`` copies it (then None)
     first_tok: int
     ready: float = dataclasses.field(default_factory=perf_counter)
     # perf_counter when the prefill ended (the record's construction)
@@ -261,14 +266,20 @@ class ContinuousEngine:
         the shared cache).  The prefill logits yield the first generated
         token, exactly like the static engine."""
         rec = current_recorder()
-        with rec.span("prefill_issue", req=req.uid):
+        with rec.span("prefill_issue", req=req.uid), held_pairs() as held:
             batch = {"tokens": tokens_tensor(req.prompt[None], self.device),
                      **modal_dummy_inputs(self.cfg, 1, self.device)}
             cache, logits = self.api.prefill(self.params, self.cfg, batch,
                                              self.max_seq, AttnMode())
             self.metrics.inc("serve_prefill_tokens", len(req.prompt))
         with rec.span("prefill_sync", req=req.uid):
-            first = int(logits[0].argmax())
+            if held.total is not None:
+                # the held pairs come back in the first token's readback
+                first, pairs = torch.stack(
+                    [logits[0].argmax(), held.total]).tolist()
+                self.metrics.inc("serve_moe_pairs_held", pairs)
+            else:
+                first = int(logits[0].argmax())
         return Admission(req=req, cache=cache, first_tok=first)
 
     def free_slots(self) -> list[int]:
@@ -276,7 +287,8 @@ class ContinuousEngine:
 
     @torch.inference_mode()
     def insert(self, adm: Admission) -> Optional[int]:
-        """Copy an admission into a free slot (mutates the shared cache).
+        """Copy an admission into a free slot (mutates the shared cache)
+        and drop its single-slot cache (``adm.cache`` is None after).
         Returns the slot index, or None when the request completed at
         admission (``max_new_tokens == 1``: the prefill logits were the
         whole generation, no slot needed)."""
@@ -284,6 +296,7 @@ class ContinuousEngine:
         self.metrics.inc("serve_admit_wait_us",
                          int((perf_counter() - adm.ready) * 1e6))
         if adm.req.max_new_tokens <= 1:
+            adm.cache = None
             self._finish(adm.req, [adm.first_tok])
             return None
         free = self.free_slots()
@@ -292,6 +305,8 @@ class ContinuousEngine:
         slot = free[0]
         for name, ax in self._axes.items():
             self.cache[name].narrow(ax, slot, 1).copy_(adm.cache[name])
+        # copied (in stream order, before any later use of the memory)
+        adm.cache = None
         self.slots[slot] = _Slot(
             req=adm.req,
             position=self._prefix + len(adm.req.prompt),

@@ -20,7 +20,11 @@ static sub-mesh next to ETL pipelines (the paper's heterogeneous-task
 coupling), under ``HETEROGENEOUS`` they share the pool with everything
 else.  Admissions produced by a finished prefill task are copied into the
 shared cache by ServeDriver's own thread, and only while no decode task is
-in flight — the one serialization point the shared cache needs.
+in flight — the one serialization point the shared cache needs.  The
+driver takes the admissions out of the finished task (its ``result`` is
+then None), and ``insert`` drops each single-slot cache once copied, so
+a request's prefill cache lives from its prefill to its admission and
+not until the session closes.
 
 ServeDriver is the telemetry source for the tier: every loop it snapshots
 the engine's :class:`~repro_torch.obs.MetricsRegistry` (queue depth, slot
@@ -160,6 +164,9 @@ class ServeDriver:
                         raise RuntimeError(
                             f"serve prefill task failed: {task.error}")
                     self._parked.extend(task.result)
+                    # the parked admissions now own their caches; a
+                    # session keeps its tasks until it closes
+                    task.result = None
                 elif task.uid == self._decode_uid:
                     self._decode_uid = None
                     if task.state is not TaskState.DONE:

@@ -1520,3 +1520,91 @@ def test_sharded_f32_prefill_and_decode_tokens_equal_one_rank(cuda, arch,
                                         device=cuda)}
         logits, cache = sharded[1].fn(params, feed, cache)
         want, one_cache = one[1].fn(model, feed, one_cache)
+
+
+def _jamba_serving(cuda, dtype, max_batch):
+    """The reduced Jamba (one period of 8 layers: attention at 4, 16-way
+    router over 8 held experts at the odd layers) at ``dtype`` on the card,
+    and its continuous engine, which captures the decode step as a CUDA
+    graph."""
+    import dataclasses
+    from repro_torch.configs.jamba2_mini import REDUCED
+    from repro_torch.models import get_model
+    from repro_torch.serve import ContinuousEngine
+    cfg = dataclasses.replace(REDUCED, dtype=dtype)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+    eng = ContinuousEngine(cfg, params, max_batch=max_batch, max_seq=64)
+    assert eng.graph is not None
+    return cfg, params, eng
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_jamba_decode_graph_replay_equals_the_eager_step(cuda, dtype):
+    """One replay of Jamba's captured step at max_batch 4 (Mamba states,
+    KV cache, the dropless expert layer's grouped products), from a random
+    slot cache, against the eager ``decode_step`` and argmax on a clone of
+    that cache: the next token ids and the cache each leaves, bit for
+    bit."""
+    cfg, params, eng = _jamba_serving(cuda, dtype, 4)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (4, 1))
+    pos = rng.integers(0, 64, 4)
+    with torch.inference_mode():
+        for t in eng.cache.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+        start = {n: t.clone() for n, t in eng.cache.items()}
+        clone = {n: t.clone() for n, t in eng.cache.items()}
+        ids = eng.graph.replay(toks, pos).clone()
+        logits, _ = eng.api.decode_step(params, cfg, {
+            "tokens": torch.from_numpy(toks).to(cuda),
+            "positions": torch.from_numpy(pos).to(cuda)}, clone)
+        want = logits.argmax(-1)
+    assert torch.equal(ids, want)
+    for n, t in eng.cache.items():
+        assert torch.equal(t, clone[n]), n
+        assert not torch.equal(t, start[n]), n     # the step wrote it
+
+
+def test_jamba_engine_on_the_card_matches_greedy_reference(cuda,
+                                                           monkeypatch):
+    """The reduced Jamba engine in f32 (TF32 off) against greedy_reference,
+    token for token, every decode round a replay; the held pairs of its
+    prefills counted on the card."""
+    from repro_torch.serve import greedy_reference
+    from repro_torch.serve_lm import make_requests
+    assert not torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg, params, eng = _jamba_serving(cuda, "float32", 2)
+    reqs = make_requests(cfg, [30, 7, 19], [6, 6, 6])
+    out = eng.run(reqs)
+    steps = eng.metrics.get("serve_decode_steps")
+    assert steps > 0
+    assert eng.metrics.get("serve_decode_graph_replays") == steps
+    assert 0 < eng.metrics.get("serve_moe_pairs_held") <= 56 * 2 * 4
+    for r in reqs:
+        np.testing.assert_array_equal(
+            out[r.uid], greedy_reference(cfg, params, r.prompt,
+                                         r.max_new_tokens))
+
+
+def test_grouped_expert_products_on_the_card(cuda):
+    """``moe.grouped_mm`` in bf16 (``torch._grouped_mm``) and f32 (the
+    masked products) against a product per expert over its rows, with
+    empty groups and rows past the last group."""
+    from repro_torch.models.moe import grouped_mm
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ends = torch.tensor([5, 5, 40, 64, 64, 90, 91, 100], dtype=torch.int32,
+                        device=cuda)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        x = torch.randn(120, 256, generator=g, device=cuda).to(dtype)
+        w = (torch.randn(8, 256, 384, generator=g, device=cuda)
+             / 16).to(dtype)
+        out = grouped_mm(x, w, ends)
+        lo = 0
+        for e, hi in enumerate(ends.tolist()):
+            torch.testing.assert_close(out[lo:hi].float(),
+                                       (x[lo:hi].float() @ w[e].float()),
+                                       atol=tol, rtol=tol)
+            lo = hi

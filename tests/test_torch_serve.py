@@ -148,17 +148,20 @@ def test_mixed_budgets_and_immediate_completion():
 
 def test_admission_never_aliases_the_slot_cache():
     """The port updates the slot cache in place: an admission's own cache
-    is left as its prefill wrote it, and a free slot's dummy decode writes
-    only that slot's row at position 0."""
+    is left as its prefill wrote it (``insert`` copies it, then the
+    admission lets go of it), and a free slot's dummy decode writes only
+    that slot's row at position 0."""
     _, (cfg, model) = _make("qwen3-8b")
     eng = ContinuousEngine(cfg, model, max_batch=2, max_seq=16)
     [r] = _reqs(cfg, [(4, 5)])
     adm = eng.prefill_request(r)
-    before = {n: t.clone() for n, t in adm.cache.items()}
+    own = dict(adm.cache)
+    before = {n: t.clone() for n, t in own.items()}
     slot = eng.insert(adm)
+    assert adm.cache is None
     other = 1 - slot
     eng.decode_round()
-    for n, t in adm.cache.items():
+    for n, t in own.items():
         assert t.data_ptr() != eng.cache[n].data_ptr()
         assert (t == before[n]).all()
         ax = eng._axes[n]
@@ -188,10 +191,10 @@ def test_ssm_free_slot_decodes_only_its_own_row():
                                    rtol=1e-5, atol=1e-5)
         assert (eng.cache[n].narrow(ax, 1 - slot, 1) != 0).any()
     adm2 = eng.prefill_request(r2)
+    own2 = dict(adm2.cache)
     assert eng.insert(adm2) == 1 - slot
     for n, ax in eng._axes.items():
-        assert torch.equal(eng.cache[n].narrow(ax, 1 - slot, 1),
-                           adm2.cache[n])
+        assert torch.equal(eng.cache[n].narrow(ax, 1 - slot, 1), own2[n])
 
 
 @pytest.mark.parametrize("arch", list_archs())
